@@ -1,0 +1,125 @@
+"""The port's flash-attention forward against the JAX package's Pallas kernel.
+
+On the CPU the port's wrapper takes its plain version
+(``flash_attention_reference``); the JAX kernel runs in Pallas interpret
+mode, as tests/test_pallas_attention.py runs it.  Same numpy inputs into
+both; f32 agrees to 1e-5.  The CUDA kernel itself is held against the same
+plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from distributed_machine_learning_tpu.ops.pallas_attention import (  # noqa: E402
+    _flash_forward,
+    flash_attention as jax_flash_attention,
+)
+from distributed_machine_learning_tpu_torch.ops import flash_attention as port  # noqa: E402
+
+# Shapes of tests/test_pallas_attention.py.
+B, S, H, D = 1, 32, 2, 8
+BQ = BK = 16
+
+
+def _inputs(seed, S=S, H=H, Hkv=H, D=D, B=B):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+
+
+CASES = {
+    "f32": dict(),
+    "f32_causal": dict(causal=True),
+    "gqa": dict(H=4, Hkv=2),
+    "mqa_causal": dict(H=4, Hkv=1, causal=True),
+    "custom_scale": dict(scale=0.21),
+    "seq_not_multiple_of_block": dict(S=40, causal=True),
+    "batch2": dict(B=2, H=4, Hkv=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_reference_matches_pallas_kernel(name):
+    case = dict(CASES[name])
+    causal = case.pop("causal", False)
+    scale = case.pop("scale", None)
+    q, k, v = _inputs(1, **case)
+    s = q.shape[-1] ** -0.5 if scale is None else scale
+    ref_out, ref_lse = _flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), s, causal, BQ, BK,
+        True, with_lse=True,
+    )
+    jax_out = jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,
+        causal=causal, block_q=BQ, block_k=BK, interpret=True,
+    )
+    out, lse = port.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), s,
+        causal,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_out), atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=1e-5)
+    assert lse.shape == ref_lse.shape
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_reference_matches_pallas_kernel_bf16(causal):
+    q, k, v = _inputs(2, H=4, Hkv=2)
+    to_bf16 = lambda a: jnp.asarray(a, jnp.bfloat16)
+    jax_out, jax_lse = _flash_forward(
+        to_bf16(q), to_bf16(k), to_bf16(v), D ** -0.5, causal, BQ, BK, True,
+        with_lse=True,
+    )
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out, lse = port.flash_attention_reference(tq, tk, tv, D ** -0.5, causal)
+    assert out.dtype == torch.bfloat16
+    # Both compute in f32 from the same bf16 inputs and round once at the
+    # end: at most one bf16 ulp apart.
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(jax_out, np.float32), atol=1e-2
+    )
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax_lse), atol=1e-5)
+
+
+def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(3, H=4, Hkv=2))
+    before = port.launches.count
+    out, lse = port.flash_forward(q, k, v, causal=True, with_lse=True)
+    ref_out, ref_lse = port.flash_attention_reference(q, k, v, D ** -0.5, True)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    assert torch.equal(port.flash_attention(q, k, v, causal=True), ref_out)
+    assert port.launches.count == before
+
+
+def test_backward_raises_instead_of_a_silent_plain_gradient():
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(4))
+    out = port.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="_bwd_dkdv_kernel"):
+        out.sum().backward()
+
+
+def test_fixed_kernel_tile_and_shape_checks():
+    assert port._default_blocks(2048, 64) == (64, 64)
+    assert port._default_blocks(2048, 256) == (32, 64)
+    assert port._default_blocks(96, 16, block_q=64) == (64, 64)
+    with pytest.raises(ValueError, match="compiled for tiles"):
+        port._default_blocks(2048, 64, block_q=128)
+    with pytest.raises(ValueError, match="head_dim"):
+        port._default_blocks(64, 512)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(5, H=3, Hkv=2))
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        port.flash_forward(q, k, v)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(5))
+    with pytest.raises(ValueError, match="incompatible"):
+        port.flash_forward(q, k[:, :-1], v[:, :-1])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port.flash_forward(q.to("meta"), k.to("meta"), v.to("meta"))
