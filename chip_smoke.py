@@ -7,20 +7,28 @@ Phases, one output line each (a failed phase raises and the script exits
 nonzero; nothing is caught and passed over):
 
 1. build  — the card's name and power limit; every CUDA kernel compiled
-   from the sources in the checkout (one nvcc per source, all at once).
-2. kernel — each kernel held against its plain PyTorch version on the card
-   over a grid of dtypes, causal flags, grouped-kv layouts, head dims,
-   sequence lengths and scales; then timed at the serving shape beside its
-   plain version and the PyTorch library call that computes the same
-   function.
-3. serve  — the bench flagship transformer (d_model 512, 8 heads, 4
+   from the sources in the checkout (one nvcc per source, all at once),
+   with ptxas's registers and spills per kernel.
+2. kernel — the forward kernel held against its plain PyTorch version on
+   the card over a grid of dtypes, causal flags, grouped-kv layouts, head
+   dims, sequence lengths and scales; then timed at the flagship shape
+   beside its plain version and the PyTorch library call that computes
+   the same function.
+3. kernel_bwd — the same for the two backward kernels (dK/dV and dQ),
+   timed at the flagship training shape.
+4. serve  — the bench flagship transformer (d_model 512, 8 heads, 4
    layers, seq 2048, bf16, flash attention) written as a bundle with
    seeded weights, loaded back and served over HTTP by the port's
    PredictionServer; ~32 concurrent /predict requests, each answer held
    against the plain-PyTorch forward with the same weights, and the
-   kernel's launch counter read around the run.
-4. serve_gqa — the same for the GQA + RoPE transformer (8 q heads, 4 kv
+   kernels' launch counters read around the run.
+5. serve_gqa — the same for the GQA + RoPE transformer (8 q heads, 4 kv
    heads) at a cut depth, in f32.
+6. train  — ``tune.train_regressor`` trains the flagship for 2 epochs of
+   8 steps on ``dummy_regression_data`` (80 rows of seq 2048 x 16), with
+   the launch counters read around the run; one step's gradients held
+   against the same step through the plain forward and backward; one
+   step's device time split by kernel (torch.profiler).
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -206,7 +214,137 @@ def phase_kernel():
     return timing
 
 
-# -- phases 3 and 4 -----------------------------------------------------------
+# -- phase 3 ----------------------------------------------------------------
+
+
+def _rel_err(got, want) -> float:
+    """max |err| over max(1, max |want|): gradients grow with S, so the
+    tolerance is relative to the largest entry."""
+    want = want.float()
+    return ((got.float() - want).abs().max().item()
+            / max(1.0, want.abs().max().item()))
+
+
+def _bwd_inputs(B, S, H, Hkv, D, dtype, scale, causal, seed):
+    """q, k, v, dO and the forward's lse and delta, on the card."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(B, S, H, Hkv, D, dtype, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(B, S, H, D, generator=gen).to("cuda", dtype)
+    out, lse = fa.flash_forward(q, k, v, scale, causal, with_lse=True)
+    return q, k, v, do, lse, fa.backward_delta(out, do)
+
+
+def phase_kernel_bwd():
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    # Relative to the largest gradient entry.  f32: the kernels and the
+    # plain version differ only in summation order (tiles of 64 against
+    # one dense einsum), ~1e-6 at S = 2048.  bf16: each side rounds every
+    # gradient to bf16 once (2**-8 relative), so two roundings apart.
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            for H, Hkv in ((8, 8), (8, 4), (8, 1)):
+                for D in (16, 40, 64, 128, 256):
+                    for S in (96, 130, 2048):
+                        for scale in (None, 0.37):
+                            B = 1 if S >= 1024 else 2
+                            s = D ** -0.5 if scale is None else scale
+                            q, k, v, do, lse, delta = _bwd_inputs(
+                                B, S, H, Hkv, D, dtype, scale, causal, n)
+                            dk, dv = fa.flash_bwd_dkdv(q, k, v, lse, do,
+                                                       delta, s, causal)
+                            dq = fa.flash_bwd_dq(q, k, v, lse, do, delta, s,
+                                                 causal)
+                            ref = fa.flash_attention_backward_reference(
+                                q, k, v, lse, do, delta, s, causal)
+                            torch.cuda.synchronize()
+                            for name, got, want in zip(("dq", "dk", "dv"),
+                                                       (dq, dk, dv), ref):
+                                err = _rel_err(got, want)
+                                if (got.shape != want.shape
+                                        or got.dtype != dtype
+                                        or not err <= tol[dtype]):
+                                    raise AssertionError(
+                                        f"flash_bwd {name} disagrees with its "
+                                        f"plain version: dtype={dtype} "
+                                        f"causal={causal} H={H} Hkv={Hkv} "
+                                        f"D={D} S={S} scale={scale}: rel "
+                                        f"err {err} (tol {tol[dtype]})")
+                                worst[name] = max(worst[name], err)
+                            n += 1
+                            del q, k, v, do, lse, delta, dq, dk, dv, ref
+
+    # The training shape: one layer's backward at the flagship batch.
+    B, S, H, D = 8, FLAGSHIP["max_seq_length"], FLAGSHIP["num_heads"], 64
+    dtype, s = torch.bfloat16, D ** -0.5
+    q, k, v, do, lse, delta = _bwd_inputs(B, S, H, H, D, dtype, None, False,
+                                          4321)
+    args = (q, k, v, lse, do, delta, s, False)
+    dk, dv = fa.flash_bwd_dkdv(*args)
+    dq = fa.flash_bwd_dq(*args)
+    ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(*args)
+    ref_dq = fa.flash_bwd_dq_reference(*args)
+    torch.cuda.synchronize()
+    err = {
+        "flash_bwd_dkdv": max((dk.float() - ref_dk.float()).abs().max().item(),
+                              (dv.float() - ref_dv.float()).abs().max().item()),
+        "flash_bwd_dq": (dq.float() - ref_dq.float()).abs().max().item(),
+    }
+    del ref_dk, ref_dv, ref_dq
+    # The library yardstick: SDPA's backward (autograd.grad) for the same
+    # gradients, [B, H, S, D] views of the same tensors.
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    library = {
+        "flash_bwd_dkdv": lambda: torch.autograd.grad(
+            sdpa_out, (kt, vt), dot, retain_graph=True),
+        "flash_bwd_dq": lambda: torch.autograd.grad(
+            sdpa_out, (qt,), dot, retain_graph=True),
+    }
+    kernel = {"flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(*args),
+              "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args)}
+    plain = {"flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv_reference(*args),
+             "flash_bwd_dq": lambda: fa.flash_bwd_dq_reference(*args)}
+    # 4 matmuls of 2*B*H*S^2*D flop per tile pair in dkdv, 3 in dq.
+    flops = {"flash_bwd_dkdv": 8.0 * B * H * S * S * D,
+             "flash_bwd_dq": 6.0 * B * H * S * S * D}
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    rows = B * H * S * 4 * 2  # lse and delta, f32
+    nbytes = {"flash_bwd_dkdv": size(q, do, k, v, dk, dv) + rows,
+              "flash_bwd_dq": size(q, do, k, v, dq) + rows}
+    timing = {}
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        ms = cuda_ms(kernel[name], iters=10)
+        t_ops = flops[name] / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        timing[name] = {
+            "ms": ms,
+            "plain_ms": cuda_ms(plain[name], iters=3, warmup=1),
+            "library_ms": cuda_ms(library[name], iters=10),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err[name], "gflop": flops[name] / 1e9,
+            "tflops": flops[name] / (ms * 1e-3) / 1e12,
+        }
+    emit("kernel_bwd", card=torch.cuda.get_device_name(0), cases=n,
+         max_rel_err=worst, shape=[B, S, H, D], dtype="bfloat16",
+         **timing)
+    return timing
+
+
+# -- phases 4 and 5 -----------------------------------------------------------
 
 
 def _post(url: str, payload) -> dict:
@@ -313,8 +451,7 @@ def phase_serve(name: str, config: dict, seq: int, n_requests: int, atol):
         for _ in range(n_requests)
     ]
 
-    counter = flash_attention.launches
-    counter.reset()
+    counters = _reset_counters()
     t_start = time.monotonic()
     server = PredictionServer(bundle, port=0, num_replicas=1,
                               device="cuda:0", max_bucket=8,
@@ -343,7 +480,8 @@ def phase_serve(name: str, config: dict, seq: int, n_requests: int, atol):
         metrics = server.handle_metrics()
     finally:
         server.close()
-    launches = counter.count
+    counts = {c.name: c.count for c in counters}
+    launches = counts[flash_attention.launches.name]
     forwards = metrics["compile"]["per_replica"][0]["forwards"]
     layers_n = config["num_layers"]
     if launches < layers_n * forwards:
@@ -351,6 +489,8 @@ def phase_serve(name: str, config: dict, seq: int, n_requests: int, atol):
             f"{name}: flash_fwd launched {launches} times for {forwards} "
             f"bucket forwards of {layers_n} layers"
         )
+    if sum(counts.values()) != launches:
+        raise AssertionError(f"{name}: serving ran a backward kernel: {counts}")
 
     worst = 0.0
     for x, ans, ref in zip(requests, answers, _plain_forwards(bundle, requests)):
@@ -374,6 +514,247 @@ def phase_serve(name: str, config: dict, seq: int, n_requests: int, atol):
     return launches
 
 
+# -- phase 6 ----------------------------------------------------------------
+
+TRAIN = dict(FLAGSHIP, learning_rate=1e-3, batch_size=8, num_epochs=2,
+             optimizer="adam", lr_schedule="warmup_linear_decay", seed=0)
+TRAIN_ROWS = 80  # 64 train rows (8 steps of 8) and 16 val rows
+
+
+def _reset_counters():
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    counters = (fa.launches, fa.dkdv_launches, fa.dq_launches)
+    for c in counters:
+        c.reset()
+    return counters
+
+
+def _plain_flash():
+    """flash_attention with the plain forward and the plain backward."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, scale, causal):
+            s = q.shape[-1] ** -0.5 if scale is None else scale
+            out, lse = fa.flash_attention_reference(q, k, v, s, causal)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.args = (s, causal)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse = ctx.saved_tensors
+            s, causal = ctx.args
+            grads = fa.flash_attention_backward_reference(
+                q, k, v, lse, do, fa.backward_delta(out, do), s, causal)
+            return (*grads, None, None)
+
+    return lambda q, k, v, scale=None, causal=False: PlainFlash.apply(
+        q, k, v, scale, causal)
+
+
+def _flagship_step_setup(train, compute_dtype: str = "bfloat16"):
+    """The flagship model with seeded weights (the same for every compute
+    dtype: parameters are f32) and one 8-row batch."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.models import (
+        build_model,
+        compute_dtype_of,
+        init_parameters,
+    )
+
+    config = dict(TRAIN, compute_dtype=compute_dtype)
+    model = build_model(config, FEATURES)
+    init_parameters(model, torch.Generator().manual_seed(0)).to("cuda")
+    x = torch.from_numpy(train.x[:8]).to("cuda", compute_dtype_of(config))
+    y = torch.from_numpy(train.y[:8]).to("cuda")
+    return model, x, y
+
+
+def _step_grads(train, compute_dtype: str, plain: bool):
+    """Every parameter's gradient of one step, flattened into one f32
+    vector; ``plain`` swaps the kernels for the plain forward/backward."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.models import layers
+    from distributed_machine_learning_tpu_torch.ops.losses import mse_loss
+
+    model, x, y = _flagship_step_setup(train, compute_dtype)
+    model.train()
+    params = [p for _, p in model.named_parameters()]
+    kernel_fn = layers.flash_attention
+    if plain:
+        layers.flash_attention = _plain_flash()
+    try:
+        loss = mse_loss(model(x).float(), y)
+        grads = torch.autograd.grad(loss, params)
+    finally:
+        layers.flash_attention = kernel_fn
+    return torch.cat([g.flatten() for g in grads])
+
+
+def _grad_check(train) -> dict:
+    """One flagship step's gradients through the kernels against the same
+    step through the plain forward and backward, in f32 and in bf16, each
+    as ||a - b|| / ||b|| over every parameter."""
+    g = {(dt, plain): _step_grads(train, dt, plain)
+         for dt in ("float32", "bfloat16") for plain in (False, True)}
+    if not all(bool(v.isfinite().all()) for v in g.values()):
+        raise AssertionError("train: non-finite gradient")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    return {
+        "f32_kernel_vs_plain": rel(g["float32", False], g["float32", True]),
+        "bf16_kernel_vs_plain": rel(g["bfloat16", False],
+                                    g["bfloat16", True]),
+        "bf16_kernel_vs_f32": rel(g["bfloat16", False], g["float32", True]),
+        "bf16_plain_vs_f32": rel(g["bfloat16", True], g["float32", True]),
+    }
+
+
+def _profile_step(train) -> dict:
+    """One flagship training step (forward, backward, adam update) split
+    by device kernel (torch.profiler; kernel times are device times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_machine_learning_tpu_torch.ops.losses import mse_loss
+    from distributed_machine_learning_tpu_torch.ops.optimizers import (
+        make_injected_optimizer,
+        set_injected_hyperparams,
+    )
+    from distributed_machine_learning_tpu_torch.ops.schedules import (
+        get_schedule,
+    )
+    from distributed_machine_learning_tpu_torch.tune._regression_program import (
+        make_epoch_fn,
+    )
+
+    model, x, y = _flagship_step_setup(train)
+    tx = make_injected_optimizer("adam", get_schedule("constant",
+                                                      learning_rate=1.0))
+    opt = set_injected_hyperparams(tx.init(dict(model.named_parameters())),
+                                   TRAIN["learning_rate"], 0.0)
+    step = make_epoch_fn(model, tx, mse_loss, 8, 1, 8)
+    perm = torch.arange(8)
+    float(step(opt, x, y, perm, None))  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(opt, x, y, perm, None))
+        step_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, n_launches = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[evt.key] = evt.self_device_time_total / 1e3
+            n_launches += evt.count
+    groups = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0,
+              "other": 0.0}
+    for key, ms in by_kernel.items():
+        group = next((g for g in ("flash_bwd_dkdv", "flash_bwd_dq",
+                                  "flash_fwd") if f"{g}_kernel" in key),
+                     "other")
+        groups[group] += ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "step_host_ms": step_ms, "step_device_ms": sum(by_kernel.values()),
+        "step_kernel_launches": n_launches,
+        "step_device_ms_by_group": groups,
+        "step_device_top_ms": {k[:70]: v for k, v in top},
+    }
+
+
+class _Trial:
+    trial_id = "chip_smoke_train"
+
+
+def phase_train():
+    import torch
+
+    from distributed_machine_learning_tpu_torch import tune
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+
+    t_start = time.monotonic()
+    train, val = dummy_regression_data(num_samples=TRAIN_ROWS,
+                                       seq_len=TRAIN["max_seq_length"],
+                                       num_features=FEATURES)
+    records = []
+
+    def report(metrics, checkpoint):
+        records.append(metrics)
+        return "continue"
+
+    trainable = tune.with_parameters(tune.train_regressor, train_data=train,
+                                     val_data=val)
+    counters = _reset_counters()
+    tune.session.set_session(tune.session.Session(
+        trial=_Trial(), report_fn=report,
+        checkpoint_loader=lambda: None, devices=[torch.device("cuda", 0)],
+    ))
+    try:
+        t0 = time.monotonic()
+        trainable(TRAIN)
+        train_s = time.monotonic() - t0
+    finally:
+        tune.session.set_session(None)
+    launches = {c.name: c.count for c in counters}
+
+    layers_n = TRAIN["num_layers"]
+    steps = records[-1]["steps"]
+    eval_forwards = TRAIN["num_epochs"] * -(-len(val) // TRAIN["batch_size"])
+    if steps != 16 or len(records) != TRAIN["num_epochs"]:
+        raise AssertionError(f"train: {len(records)} epochs, {steps} steps")
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        if launches[name] != layers_n * steps:
+            raise AssertionError(
+                f"train: {name} launched {launches[name]} times, not "
+                f"{layers_n} x {steps}")
+    if launches["flash_fwd"] < layers_n * (steps + eval_forwards):
+        raise AssertionError(
+            f"train: flash_fwd launched {launches['flash_fwd']} times, "
+            f"fewer than {layers_n} x ({steps} + {eval_forwards})")
+    for r in records:
+        if not all(np.isfinite(r[k]) for k in ("train_loss",
+                                               "validation_loss")):
+            raise AssertionError(f"train: non-finite loss in {r}")
+
+    # f32: the kernels and the plain version differ only in summation
+    # order, so the whole step's gradient agrees to ~1e-5; 1e-3 leaves
+    # room for the 4 layers.  bf16: activations are rounded to bf16 at
+    # every layer, which moves the plain step's gradient away from the f32
+    # one by some amount e; the kernels must stay as close to the f32
+    # gradient as that (within 25 %).
+    grads = _grad_check(train)
+    if not grads["f32_kernel_vs_plain"] <= 1e-3:
+        raise AssertionError(f"train: f32 kernel gradients off the plain "
+                             f"step: {grads} (tol 1e-3)")
+    bf16_tol = 1.25 * grads["bf16_plain_vs_f32"] + 1e-3
+    if not grads["bf16_kernel_vs_f32"] <= bf16_tol:
+        raise AssertionError(f"train: bf16 kernel gradients farther from "
+                             f"the f32 step than the plain bf16 step: "
+                             f"{grads} (tol {bf16_tol})")
+    profile = _profile_step(train)
+    epoch_s = sum(r["epoch_time_s"] for r in records)
+    emit("train", card=torch.cuda.get_device_name(0),
+         config={k: TRAIN[k] for k in ("d_model", "num_heads", "num_layers",
+                                       "dim_feedforward", "max_seq_length",
+                                       "compute_dtype", "batch_size")},
+         epochs=[{k: r.get(k) for k in ("epoch", "train_loss",
+                                          "validation_mape", "epoch_time_s",
+                                          "mfu")} for r in records],
+         steps=steps, steps_per_s=steps / epoch_s,
+         launches=launches, grad_rel_err=grads,
+         train_s=train_s, **profile, total_s=time.monotonic() - t_start)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -386,25 +767,31 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
-    timing = phase_kernel()
-    launches = phase_serve("serve", FLAGSHIP, FLAGSHIP["max_seq_length"],
-                           n_requests=32, atol=3e-2)
+    timings = {"flash_fwd": phase_kernel(), **phase_kernel_bwd()}
+    phase_serve("serve", FLAGSHIP, FLAGSHIP["max_seq_length"],
+                n_requests=32, atol=3e-2)
     phase_serve("serve_gqa", GQA_ROPE, 96, n_requests=16, atol=2e-4)
+    launches = phase_train()
 
+    sources = {
+        "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
+        "flash_bwd_dkdv": ("flash_bwd.cu", "pallas_attention.py:279"),
+        "flash_bwd_dq": ("flash_bwd.cu", "pallas_attention.py:343"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        t = timings[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"distributed_machine_learning_tpu_torch/csrc/{source}",
+            "replaces": f"distributed_machine_learning_tpu/ops/{replaces}",
+            "launches": launches[name],
+            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+        })
     print(smi_line(), flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "distributed_machine_learning_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "distributed_machine_learning_tpu/ops/pallas_attention.py:53",
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

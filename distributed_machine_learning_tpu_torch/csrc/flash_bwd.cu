@@ -1,0 +1,528 @@
+// Flash-attention backward for Hopper (sm_90a), written by hand: the dK/dV
+// kernel and the dQ kernel.
+//
+// Replaces the TPU kernels `_bwd_dkdv_kernel` and `_bwd_dq_kernel` (with
+// their shared block math `_bwd_recompute`), launched by `_flash_backward`
+// in distributed_machine_learning_tpu/ops/pallas_attention.py.  Same
+// function: P = exp(Q K^T * scale - lse) recomputed per tile from the
+// forward's logsumexp (masked logits and rows with lse = -inf give P = 0),
+// dS = P * (dO V^T - delta) * scale with delta = rowsum(dO * O), then
+//   dV = sum P^T dO and dK = sum dS^T Q   (kernel dkdv),
+//   dQ = sum dS K                          (kernel dq),
+// all accumulated in f32 and written once in the input dtype.  Nothing of
+// size S x S reaches device memory.
+//
+// Design.  The TPU grid carries its accumulators in VMEM scratch across a
+// sequential grid axis.  Here each thread block owns one output tile and
+// loops over the other axis itself, with its accumulator in f32 registers
+// for the whole loop:
+//   * dkdv: one block per (b*Hkv + kv_head, kv tile).  It loops over the
+//     group's q heads x q tiles (grouped-query attention: the H/Hkv q heads
+//     that read this kv head), so the group's reduction happens inside the
+//     block -- no atomics, the same result on every run, and dK/dV never
+//     exist at full H.
+//   * dq: one block per (b*H + head, q tile), looping over kv tiles; k and
+//     v are read at Hkv heads through the `_kv_row_map` rule.
+// The causal liveness rule is the TPU kernels': a (q tile, kv tile) pair
+// is computed iff k_start <= q_start + block_q - 1.  Tensors are read
+// through their element strides ([B, S, H, D] in any layout; autograd may
+// hand in an expanded dO with stride 0) and the ragged edges of S and D
+// are masked, so any S and any D in 1..256 work.
+//
+// Bound.  At the flagship training shape (B=8, S=2048, H=8, D=64, bf16,
+// non-causal) dkdv does 8*B*H*S^2*D = 137 GFLOP and dq 6*B*H*S^2*D =
+// 103 GFLOP against ~0.1 GB of tensor traffic: both are bound by
+// operations.  This first version runs f32 FMAs on the CUDA cores from
+// tiles staged in shared memory as f32, far from the tensor-core bound;
+// its measured times sit in PERF.md.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kColGroups = 8;   // threads sharing one row group
+constexpr int kRowGroups = 32;  // row groups per block
+constexpr int kThreads = kColGroups * kRowGroups;
+
+struct Strides {
+  long long b, s, h, d;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
+}
+
+// N consecutive floats from shared memory, in 16- or 8-byte loads.
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      out[i] = t.x;
+      out[i + 1] = t.y;
+      out[i + 2] = t.z;
+      out[i + 3] = t.w;
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + i);
+      out[i] = t.x;
+      out[i + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = p[i];
+  }
+}
+
+// `rows` rows of a [.., S, .., D] tensor starting at row `s0`, stored
+// transposed as dst[d * pitch + r] in f32, zero past S and D.
+template <typename T, int DMAX>
+__device__ __forceinline__ void stage_transposed(float* dst, int pitch,
+                                                 const T* src, Strides st,
+                                                 int s0, int rows, int S,
+                                                 int D) {
+  for (int idx = threadIdx.x; idx < rows * DMAX; idx += kThreads) {
+    const int r = idx / DMAX;
+    const int d = idx % DMAX;
+    const int s = s0 + r;
+    float val = 0.f;
+    if (s < S && d < D) val = to_f32(src[s * st.s + d * st.d]);
+    dst[d * pitch + r] = val;
+  }
+}
+
+// Per-row lse and delta of a q tile; rows past S get lse = -inf, which
+// zeroes their P and dS.
+__device__ __forceinline__ void stage_rows(float* s_lse, float* s_delta,
+                                           const float* lse,
+                                           const float* delta, int q0,
+                                           int rows, int S) {
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const int s = q0 + r;
+    s_lse[r] = s < S ? lse[s] : -INFINITY;
+    s_delta[r] = s < S ? delta[s] : 0.f;
+  }
+}
+
+// `_bwd_recompute` for the (q tile, kv tile) pair staged in shared memory:
+// this thread's RQ x CS block of P and dS, rows rg*RQ + i and columns
+// cg*CS + j.  sQT/sdOT are [DMAX][QP], sKT/sVT [DMAX][KP].
+template <int DMAX, int RQ, int CS>
+__device__ __forceinline__ void recompute(
+    const float* sQT, const float* sdOT, int QP, const float* sKT,
+    const float* sVT, int KP, const float* s_lse, const float* s_delta,
+    int rg, int cg, int q0, int k0, int S, float scale, int causal,
+    float (&p)[RQ][CS], float (&ds)[RQ][CS]) {
+  float dp[RQ][CS];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < CS; ++j) {
+      p[i][j] = 0.f;
+      dp[i][j] = 0.f;
+    }
+#pragma unroll 2
+  for (int d = 0; d < DMAX; ++d) {
+    float qr[RQ], dor[RQ], kc[CS], vc[CS];
+    load_vec<RQ>(sQT + d * QP + rg * RQ, qr);
+    load_vec<RQ>(sdOT + d * QP + rg * RQ, dor);
+    load_vec<CS>(sKT + d * KP + cg * CS, kc);
+    load_vec<CS>(sVT + d * KP + cg * CS, vc);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < CS; ++j) {
+        p[i][j] = fmaf(qr[i], kc[j], p[i][j]);
+        dp[i][j] = fmaf(dor[i], vc[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int r = rg * RQ + i;
+    const int row = q0 + r;
+    const float l = s_lse[r];
+    const float dl = s_delta[r];
+#pragma unroll
+    for (int j = 0; j < CS; ++j) {
+      const int col = k0 + cg * CS + j;
+      const bool live = col < S && !(causal && col > row) && isfinite(l);
+      const float pv = live ? expf(p[i][j] * scale - l) : 0.f;
+      p[i][j] = pv;
+      ds[i][j] = pv * (dp[i][j] - dl) * scale;
+    }
+  }
+}
+
+template <int DMAX, int BQ, int BK>
+constexpr size_t dkdv_smem_bytes() {
+  // sKT, sVT [DMAX][BK+4]; sQT, sdOT [DMAX][BQ+4]; sP, sdS [BQ][BK+4];
+  // lse, delta [BQ].
+  return sizeof(float) * (size_t)(2 * DMAX * (BK + 4) + 2 * DMAX * (BQ + 4) +
+                                  2 * BQ * (BK + 4) + 2 * BQ);
+}
+
+template <typename T, int DMAX, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, int S, int H, int Hkv, int D,
+                          Strides qs, Strides ks, Strides vs, Strides dos,
+                          float scale, int causal) {
+  constexpr int RQ = BQ / kRowGroups;   // q rows per thread (scores)
+  constexpr int CS = BK / kColGroups;   // kv columns per thread (scores)
+  constexpr int RK = BK / kRowGroups;   // kv rows per thread (dK, dV)
+  constexpr int CO = DMAX / kColGroups; // head-dim columns per thread
+  constexpr int QP = BQ + 4;
+  constexpr int KP = BK + 4;
+  static_assert(RQ >= 1 && CS >= 1 && RK >= 1 && CO >= 1, "tile too small");
+
+  extern __shared__ float4 smem4[];
+  float* sKT = reinterpret_cast<float*>(smem4);  // [DMAX][KP]
+  float* sVT = sKT + DMAX * KP;                  // [DMAX][KP]
+  float* sQT = sVT + DMAX * KP;                  // [DMAX][QP]
+  float* sdOT = sQT + DMAX * QP;                 // [DMAX][QP]
+  float* sP = sdOT + DMAX * QP;                  // [BQ][KP]
+  float* sdS = sP + BQ * KP;                     // [BQ][KP]
+  float* s_lse = sdS + BQ * KP;                  // [BQ]
+  float* s_delta = s_lse + BQ;                   // [BQ]
+
+  const int tid = threadIdx.x;
+  const int rg = tid / kColGroups;
+  const int cg = tid % kColGroups;
+  const int bkv = blockIdx.y;  // b * Hkv + kv_head
+  const int b = bkv / Hkv;
+  const int hk = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.x * BK;
+
+  stage_transposed<T, DMAX>(sKT, KP, k + b * ks.b + hk * ks.h, ks, k0, BK, S,
+                            D);
+  stage_transposed<T, DMAX>(sVT, KP, v + b * vs.b + hk * vs.h, vs, k0, BK, S,
+                            D);
+
+  // This thread's dK, dV rows rg*RK + i, head-dim columns cg + 8*j (the
+  // interleave keeps the strided sQT/sdOT reads below free of bank
+  // conflicts).
+  float acc_k[RK][CO], acc_v[RK][CO];
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int j = 0; j < CO; ++j) {
+      acc_k[i][j] = 0.f;
+      acc_v[i][j] = 0.f;
+    }
+
+  const int nq = (S + BQ - 1) / BQ;
+  // Causal: q tile t is live iff t*BQ + BQ - 1 >= k0, i.e. t >= k0 / BQ.
+  const int t0 = causal ? k0 / BQ : 0;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* dob = dout + b * dos.b + h * dos.h;
+    const float* lse_row = lse + (long long)(b * H + h) * S;
+    const float* delta_row = delta + (long long)(b * H + h) * S;
+    for (int t = t0; t < nq; ++t) {
+      const int q0 = t * BQ;
+      __syncthreads();  // the previous tile's readers are done
+      stage_transposed<T, DMAX>(sQT, QP, qb, qs, q0, BQ, S, D);
+      stage_transposed<T, DMAX>(sdOT, QP, dob, dos, q0, BQ, S, D);
+      stage_rows(s_lse, s_delta, lse_row, delta_row, q0, BQ, S);
+      __syncthreads();
+
+      float p[RQ][CS], ds[RQ][CS];
+      recompute<DMAX, RQ, CS>(sQT, sdOT, QP, sKT, sVT, KP, s_lse, s_delta,
+                              rg, cg, q0, k0, S, scale, causal, p, ds);
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < CS; ++j) {
+          sP[(rg * RQ + i) * KP + cg * CS + j] = p[i][j];
+          sdS[(rg * RQ + i) * KP + cg * CS + j] = ds[i][j];
+        }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q over the tile's q rows.
+#pragma unroll 2
+      for (int r = 0; r < BQ; ++r) {
+        float pr[RK], dsr[RK];
+        load_vec<RK>(sP + r * KP + rg * RK, pr);
+        load_vec<RK>(sdS + r * KP + rg * RK, dsr);
+        float dov[CO], qv[CO];
+#pragma unroll
+        for (int j = 0; j < CO; ++j) {
+          dov[j] = sdOT[(cg + kColGroups * j) * QP + r];
+          qv[j] = sQT[(cg + kColGroups * j) * QP + r];
+        }
+#pragma unroll
+        for (int i = 0; i < RK; ++i)
+#pragma unroll
+          for (int j = 0; j < CO; ++j) {
+            acc_v[i][j] = fmaf(pr[i], dov[j], acc_v[i][j]);
+            acc_k[i][j] = fmaf(dsr[i], qv[j], acc_k[i][j]);
+          }
+      }
+    }
+  }
+
+  // dK, dV: contiguous [B, S, Hkv, D].
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int row = k0 + rg * RK + i;
+    if (row >= S) continue;
+    const long long base = (((long long)b * S + row) * Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < CO; ++j) {
+      const int d = cg + kColGroups * j;
+      if (d < D) {
+        dk[base + d] = from_f32<T>(acc_k[i][j]);
+        dv[base + d] = from_f32<T>(acc_v[i][j]);
+      }
+    }
+  }
+}
+
+template <int DMAX, int BQ, int BK>
+constexpr size_t dq_smem_bytes() {
+  // sQT, sdOT [DMAX][BQ+4]; sKT, sVT [DMAX][BK+4]; sdST [BK][BQ+4];
+  // lse, delta [BQ].
+  return sizeof(float) * (size_t)(2 * DMAX * (BQ + 4) + 2 * DMAX * (BK + 4) +
+                                  BK * (BQ + 4) + 2 * BQ);
+}
+
+template <typename T, int DMAX, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int S, int H, int Hkv, int D, Strides qs, Strides ks,
+                        Strides vs, Strides dos, float scale, int causal) {
+  constexpr int RQ = BQ / kRowGroups;   // q rows per thread
+  constexpr int CS = BK / kColGroups;   // kv columns per thread (scores)
+  constexpr int CO = DMAX / kColGroups; // head-dim columns per thread (dQ)
+  constexpr int QP = BQ + 4;
+  constexpr int KP = BK + 4;
+  static_assert(RQ >= 1 && CS >= 1 && CO >= 1, "tile too small");
+
+  extern __shared__ float4 smem4[];
+  float* sQT = reinterpret_cast<float*>(smem4);  // [DMAX][QP]
+  float* sdOT = sQT + DMAX * QP;                 // [DMAX][QP]
+  float* sKT = sdOT + DMAX * QP;                 // [DMAX][KP]
+  float* sVT = sKT + DMAX * KP;                  // [DMAX][KP]
+  float* sdST = sVT + DMAX * KP;                 // [BK][QP]
+  float* s_lse = sdST + BK * QP;                 // [BQ]
+  float* s_delta = s_lse + BQ;                   // [BQ]
+
+  const int tid = threadIdx.x;
+  const int rg = tid / kColGroups;
+  const int cg = tid % kColGroups;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
+  const int q0 = blockIdx.x * BQ;
+
+  stage_transposed<T, DMAX>(sQT, QP, q + b * qs.b + h * qs.h, qs, q0, BQ, S,
+                            D);
+  stage_transposed<T, DMAX>(sdOT, QP, dout + b * dos.b + h * dos.h, dos, q0,
+                            BQ, S, D);
+  stage_rows(s_lse, s_delta, lse + (long long)bh * S,
+             delta + (long long)bh * S, q0, BQ, S);
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+
+  // This thread's dQ rows rg*RQ + i, head-dim columns cg + 8*j.
+  float acc[RQ][CO];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < CO; ++j) acc[i][j] = 0.f;
+
+  int n_kv = (S + BK - 1) / BK;
+  if (causal) {
+    // kv tile t is live iff t*BK <= q0 + BQ - 1.
+    n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
+  }
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * BK;
+    __syncthreads();  // the previous tile's readers are done
+    stage_transposed<T, DMAX>(sKT, KP, kb, ks, k0, BK, S, D);
+    stage_transposed<T, DMAX>(sVT, KP, vb, vs, k0, BK, S, D);
+    __syncthreads();
+
+    float p[RQ][CS], ds[RQ][CS];
+    recompute<DMAX, RQ, CS>(sQT, sdOT, QP, sKT, sVT, KP, s_lse, s_delta, rg,
+                            cg, q0, k0, S, scale, causal, p, ds);
+#pragma unroll
+    for (int j = 0; j < CS; ++j)
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+        sdST[(cg * CS + j) * QP + rg * RQ + i] = ds[i][j];
+    __syncthreads();
+
+    // dQ += dS K over the tile's kv rows.
+#pragma unroll 2
+    for (int c = 0; c < BK; ++c) {
+      float dsr[RQ], kd[CO];
+      load_vec<RQ>(sdST + c * QP + rg * RQ, dsr);
+#pragma unroll
+      for (int j = 0; j < CO; ++j) kd[j] = sKT[(cg + kColGroups * j) * KP + c];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < CO; ++j) acc[i][j] = fmaf(dsr[i], kd[j], acc[i][j]);
+    }
+  }
+
+  // dQ: contiguous [B, S, H, D].
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + rg * RQ + i;
+    if (row >= S) continue;
+    const long long base = (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < CO; ++j) {
+      const int d = cg + kColGroups * j;
+      if (d < D) dq[base + d] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int B, S, H, Hkv, D;
+  Strides qs, ks, vs, dos;
+  float scale;
+  int causal;
+};
+
+template <typename T, int DMAX, int BQ, int BK>
+cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = dkdv_smem_bytes<DMAX, BQ, BK>();
+  auto kern = flash_bwd_dkdv_kernel<T, DMAX, BQ, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + BK - 1) / BK, a.B * a.Hkv);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.H, a.Hkv,
+      a.D, a.qs, a.ks, a.vs, a.dos, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int DMAX, int BQ, int BK>
+cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<DMAX, BQ, BK>();
+  auto kern = flash_bwd_dq_kernel<T, DMAX, BQ, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dq), a.S, a.H, a.Hkv, a.D, a.qs, a.ks, a.vs,
+      a.dos, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// Tiles per head-dim bucket; ops/flash_attention.py::BACKWARD_TILES mirrors
+// this table.  Untuned: the first correct choice that fits shared memory
+// (the largest, D <= 128 at 64 x 64, takes 174 KB in dkdv).
+template <typename T, bool DKDV>
+cudaError_t dispatch(const Args& a, cudaStream_t st) {
+  if (a.D <= 32)
+    return DKDV ? launch_dkdv<T, 32, 64, 64>(a, st)
+                : launch_dq<T, 32, 64, 64>(a, st);
+  if (a.D <= 64)
+    return DKDV ? launch_dkdv<T, 64, 64, 64>(a, st)
+                : launch_dq<T, 64, 64, 64>(a, st);
+  if (a.D <= 128)
+    return DKDV ? launch_dkdv<T, 128, 64, 64>(a, st)
+                : launch_dq<T, 128, 64, 64>(a, st);
+  return DKDV ? launch_dkdv<T, 256, 32, 32>(a, st)
+              : launch_dq<T, 256, 32, 32>(a, st);
+}
+
+int check(const Args& a) {
+  if (a.B < 1 || a.S < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
+      a.D < 1 || a.D > 256 || a.B * a.H > 65535)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq, void* dk,
+               void* dv, int B, int S, int H, int Hkv, int D,
+               const long long* st, float scale, int causal) {
+  return Args{q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, Hkv, D,
+              Strides{st[0], st[1], st[2], st[3]},
+              Strides{st[4], st[5], st[6], st[7]},
+              Strides{st[8], st[9], st[10], st[11]},
+              Strides{st[12], st[13], st[14], st[15]},
+              scale, causal};
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both return a cudaError_t: 0 when the launch was accepted.  `strides`
+// holds 16 element strides, (b, s, h, d) of q, k, v and dout in turn.
+// lse and delta are contiguous [B*H, S] f32; dk and dv are contiguous
+// [B, S, Hkv, D] and dq contiguous [B, S, H, D], in the input dtype.
+int dml_flash_bwd_dkdv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int B, int S, int H, int Hkv, int D,
+                       const long long* strides, float scale, int causal,
+                       int is_bf16, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, S,
+                           H, Hkv, D, strides, scale, causal);
+  if (int err = check(a)) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return (int)dispatch<__nv_bfloat16, true>(a, st);
+  return (int)dispatch<float, true>(a, st);
+}
+
+int dml_flash_bwd_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dq, int B, int S, int H, int Hkv, int D,
+                     const long long* strides, float scale, int causal,
+                     int is_bf16, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B,
+                           S, H, Hkv, D, strides, scale, causal);
+  if (int err = check(a)) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return (int)dispatch<__nv_bfloat16, false>(a, st);
+  return (int)dispatch<float, false>(a, st);
+}
+
+const char* dml_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

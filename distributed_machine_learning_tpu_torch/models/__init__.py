@@ -93,10 +93,22 @@ def build_model(config: Dict[str, Any], input_features: int):
     )
 
 
+def init_parameters(model: torch.nn.Module,
+                    generator: torch.Generator) -> torch.nn.Module:
+    """Draw every parameter of ``model`` anew from ``generator``, module
+    by module in registration order (the seeded init of a trial)."""
+    for module in model.modules():
+        reset = getattr(module, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
+    return model
+
+
 __all__ = [
     "models",
     "build_model",
     "compute_dtype_of",
+    "init_parameters",
     "TransformerRegressor",
     "SimpleTransformerRegressor",
 ]

@@ -7,6 +7,12 @@ path.  Parameters stay float32; ``dtype`` is the compute dtype, applied as
 flax applies it: a dense layer casts its input, kernel and bias to it, a
 layer norm computes its statistics in f32 and returns ``dtype``.
 
+Randomness is explicit: parameters are drawn by ``reset_parameters`` from
+a ``torch.Generator`` when one is given (``models.init_parameters``), and
+dropout and stochastic depth draw their training masks from the generator
+passed to ``forward(x, rng)``; nothing reads torch's global RNG in
+training.  Evaluation draws nothing.
+
 Sequence parallelism (``seq_axis``, ring/Ulysses) and the mixture-of-
 experts feed-forward are not ported yet (ROADMAP.md queue A); asking for
 either raises.  The TPU-only softmax->flash auto-route is deliberately
@@ -65,12 +71,15 @@ class Dense(nn.Module):
         self.in_shape = tuple(np.atleast_1d(in_shape).tolist())
         self.out_shape = tuple(np.atleast_1d(out_shape).tolist())
         self.dtype = dtype
-        fan_in = int(np.prod(self.in_shape))
-        bound = fan_in ** -0.5
-        self.weight = nn.Parameter(
-            torch.empty(*self.out_shape, *self.in_shape).uniform_(-bound, bound)
-        )
+        self.weight = nn.Parameter(torch.empty(*self.out_shape, *self.in_shape))
         self.bias = nn.Parameter(torch.zeros(*self.out_shape))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = int(np.prod(self.in_shape)) ** -0.5
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_in = len(self.in_shape)
@@ -110,13 +119,17 @@ class Conv1d(nn.Module):
         self.dtype = dtype
         self.groups = groups
         self.kernel_size = kernel_size
-        fan_in = (in_features // groups) * kernel_size
-        bound = fan_in ** -0.5
         self.weight = nn.Parameter(
             torch.empty(features, in_features // groups, kernel_size)
-            .uniform_(-bound, bound)
         )
         self.bias = nn.Parameter(torch.zeros(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = int(np.prod(self.weight.shape[1:])) ** -0.5
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
@@ -125,6 +138,37 @@ class Conv1d(nn.Module):
         y = F.conv1d(xc, self.weight.to(dt), self.bias.to(dt),
                      groups=self.groups)
         return y.transpose(1, 2)
+
+
+def _rng_for_training(rng: Optional[torch.Generator]) -> torch.Generator:
+    if rng is None:
+        raise ValueError(
+            "a dropout mask in training needs an explicit torch.Generator: "
+            "call the model as model(x, rng=generator)"
+        )
+    return rng
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask is
+    drawn from the generator handed to ``forward``.  The identity in
+    evaluation or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.rate <= 0.0 or not self.training:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=_rng_for_training(rng),
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def sincos_position_table(max_len: int, d_model: int) -> np.ndarray:
@@ -149,11 +193,12 @@ class PositionalEncoding(nn.Module):
             "table", torch.from_numpy(sincos_position_table(max_len, d_model)),
             persistent=False,
         )
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x + self.table[None, : x.shape[1], :].to(x.dtype)
-        return self.dropout(x)
+        return self.dropout(x, rng)
 
 
 def apply_rope(x: torch.Tensor, base: float = 10000.0,
@@ -180,18 +225,21 @@ def apply_rope(x: torch.Tensor, base: float = 10000.0,
 
 
 class StochasticDepth(nn.Module):
-    """Drops a whole residual branch per sample with prob ``rate`` in training."""
+    """Drops a whole residual branch per sample with prob ``rate`` in
+    training; the mask comes from the generator handed to ``forward``."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate <= 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         mask_shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(mask_shape, device=x.device) < keep
+        mask = torch.rand(mask_shape, generator=_rng_for_training(rng),
+                          device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -252,7 +300,7 @@ class MultiHeadAttention(nn.Module):
         self.key = Dense(d_model, (kv_heads, hd), dtype)
         self.value = Dense(d_model, (kv_heads, hd), dtype)
         self.out = Dense((num_heads, hd), d_model, dtype)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def _full_kv(self, k, v):
         if self.kv_heads != self.num_heads:
@@ -261,7 +309,8 @@ class MultiHeadAttention(nn.Module):
                     v.repeat_interleave(group, dim=2))
         return k, v
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         S = x.shape[1]
         q, k, v = self.query(x), self.key(x), self.value(x)
         if self.rope:
@@ -282,7 +331,7 @@ class MultiHeadAttention(nn.Module):
                 mask = torch.ones(S, S, dtype=torch.bool,
                                   device=x.device).tril()[None, None]
             out = dot_product_attention(q, k, v, mask=mask, scale=scale)
-        return self.dropout(self.out(out))
+        return self.dropout(self.out(out), rng)
 
 
 class LinearFF(nn.Module):
@@ -370,11 +419,12 @@ class EncoderLayer(nn.Module):
                 f"Unknown feedforward_type {ff_type!r}; expected "
                 f"'linear', 'depthwise_separable', or 'moe'"
             )
-        self.ff_dropout = nn.Dropout(dropout_rate)
+        self.ff_dropout = Dropout(dropout_rate)
         self.ff_depth = StochasticDepth(stochastic_depth_rate)
         self.norm2 = LayerNorm(d_model, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.attn_depth(self.attention(x)))
-        ff = self.ff_depth(self.ff_dropout(self.ff(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.norm1(x + self.attn_depth(self.attention(x, rng), rng))
+        ff = self.ff_depth(self.ff_dropout(self.ff(x), rng), rng)
         return self.norm2(x + ff)

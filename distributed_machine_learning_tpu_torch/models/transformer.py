@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from distributed_machine_learning_tpu_torch.models.layers import (
     Dense,
+    Dropout,
     EncoderLayer,
     PositionalEncoding,
 )
@@ -113,7 +114,7 @@ class TransformerRegressor(nn.Module):
                 d_model, dropout_rate, max_len=max_seq_length
             )
         else:
-            self.position = nn.Dropout(dropout_rate)
+            self.position = Dropout(dropout_rate)
         if shared_weights:
             self.shared_layer = _SharedLayer(**layer_kwargs)
         else:
@@ -123,13 +124,16 @@ class TransformerRegressor(nn.Module):
             d_model, tuple(head_hidden_sizes), out_features, dtype
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [batch, seq, input_features] -> [batch, out_features]."""
-        x = self.position(self.input_projection(x))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [batch, seq, input_features] -> [batch, out_features].
+
+        ``rng`` draws the dropout masks in training mode."""
+        x = self.position(self.input_projection(x), rng)
         for i in range(self.num_layers):
             layer = (self.shared_layer.layer if self.shared_weights
                      else getattr(self, f"layer_{i}"))
-            x = layer(x)
+            x = layer(x, rng)
         return self.head(x[:, -1, :])
 
 
@@ -163,8 +167,9 @@ class SimpleTransformerRegressor(nn.Module):
             ))
         self.head = Dense(d_model, 1, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.position(self.input_projection(x))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.position(self.input_projection(x), rng)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            x = getattr(self, f"layer_{i}")(x, rng)
         return self.head(x[:, -1, :])

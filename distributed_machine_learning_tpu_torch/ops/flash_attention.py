@@ -1,21 +1,21 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
 Port of ``distributed_machine_learning_tpu/ops/pallas_attention.py``.  The
 TPU kernel ``_flash_kernel`` (launched by ``_flash_forward``) becomes
-``csrc/flash_fwd.cu``, compiled for ``sm_90a`` at first use
-(``ops/_build.py``).  :func:`flash_forward` dispatches on the tensor's
-device: a CUDA tensor launches the kernel, a CPU tensor takes
-:func:`flash_attention_reference`, the plain PyTorch version of the same
-function.  Nothing falls back from one to the other.
+``csrc/flash_fwd.cu``; the backward kernels ``_bwd_dkdv_kernel`` and
+``_bwd_dq_kernel`` (launched by ``_flash_backward``) become the two kernels
+of ``csrc/flash_bwd.cu``.  All are compiled for ``sm_90a`` at first use
+(``ops/_build.py``).  :func:`flash_forward` and :func:`flash_backward`
+dispatch on the tensor's device: a CUDA tensor launches the kernels, a CPU
+tensor takes :func:`flash_attention_reference` /
+:func:`flash_attention_backward_reference`, the plain PyTorch versions of
+the same functions.  Nothing falls back from one to the other.
 
 Shapes follow the JAX package: q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]``
 with ``H % Hkv == 0`` (grouped-query attention; kv is never repeated),
-O ``[B, S, H, D]`` in q's dtype, lse ``[B*H, 1, S]`` in f32.
-
-The backward kernels (``_bwd_dkdv_kernel``, ``_bwd_dq_kernel``) are not
-ported yet: :func:`flash_attention` is an autograd function whose backward
-raises rather than differentiating the plain version behind the caller's
-back.
+O ``[B, S, H, D]`` in q's dtype, lse ``[B*H, 1, S]`` in f32; dK and dV come
+back at ``Hkv`` heads.  :func:`flash_attention` is the autograd function:
+its forward saves O and lse, its backward runs :func:`flash_backward`.
 """
 
 from __future__ import annotations
@@ -27,12 +27,16 @@ from typing import Optional, Tuple
 import torch
 
 KERNEL_NAME = "flash_fwd"
+BACKWARD_SOURCE = "flash_bwd"
 
-# (block_q, block_k) per head-dim bucket, as compiled in csrc/flash_fwd.cu.
-# Untuned: the first tiles that are right and fit Hopper's shared memory.
-# The TPU package's VMEM-derived caps (_default_blocks there) do not apply.
+# (block_q, block_k) per head-dim bucket, as compiled in csrc/flash_fwd.cu
+# and csrc/flash_bwd.cu.  Untuned: the first tiles that are right and fit
+# Hopper's shared memory.  The TPU package's VMEM-derived caps
+# (_default_blocks there, forward and backward) do not apply.
 KERNEL_TILES = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
                 (256, (32, 64)))
+BACKWARD_TILES = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
+                  (256, (32, 32)))
 MAX_HEAD_DIM = 256
 
 
@@ -60,22 +64,27 @@ class LaunchCounter:
 
 
 launches = LaunchCounter(KERNEL_NAME)
+dkdv_launches = LaunchCounter("flash_bwd_dkdv")
+dq_launches = LaunchCounter("flash_bwd_dq")
 
 
-def _default_blocks(S: int, D: int, block_q=None, block_k=None):
+def _default_blocks(S: int, D: int, block_q=None, block_k=None,
+                    backward: bool = False):
     """The kernel's fixed (block_q, block_k) for head dim ``D``.
 
     The tile is compiled into the kernel, so an explicit block size must
     name it; any other value raises instead of being silently ignored."""
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} outside the kernel's 1..{MAX_HEAD_DIM}")
-    tile = next(t for dmax, t in KERNEL_TILES if D <= dmax)
+    table, source = ((BACKWARD_TILES, BACKWARD_SOURCE) if backward
+                     else (KERNEL_TILES, KERNEL_NAME))
+    tile = next(t for dmax, t in table if D <= dmax)
     for name, want, have in (("block_q", block_q, tile[0]),
                              ("block_k", block_k, tile[1])):
         if want is not None and int(want) != have:
             raise ValueError(
-                f"{name}={want}: the CUDA kernel is compiled for tiles "
-                f"{tile} at head_dim {D}"
+                f"{name}={want}: the CUDA {source} kernels are compiled for "
+                f"tiles {tile} at head_dim {D}"
             )
     return tile
 
@@ -96,6 +105,11 @@ def _check_shapes(q, k, v):
     return B, S, H, Hkv, D
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32 for f32 and bf16 (the kernels' accumulation type); f64 stays."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     causal: bool,
@@ -105,11 +119,13 @@ def flash_attention_reference(
     The kernel's function written densely: f32 logits ``q k^T * scale``,
     causal positions above the diagonal at -inf, a softmax against a safe
     row max, O in q's dtype and lse ``[B*H, 1, S]`` in f32, with fully
-    masked rows giving O = 0 and lse = -inf."""
+    masked rows giving O = 0 and lse = -inf.  (float64 inputs, which the
+    kernel does not take, are computed in float64 for gradient checks.)"""
     B, S, H, Hkv, D = _check_shapes(q, k, v)
     group = H // Hkv
-    qf = q.float().reshape(B, S, Hkv, group, D)
-    kf, vf = k.float(), v.float()
+    acc = _acc_dtype(q)
+    qf = q.to(acc).reshape(B, S, Hkv, group, D)
+    kf, vf = k.to(acc), v.to(acc)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
     if causal:
         keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
@@ -130,8 +146,8 @@ def flash_attention_reference(
     return out, lse.reshape(B * H, 1, S)
 
 
-def _launch(q, k, v, scale: float, causal: bool):
-    """The CUDA kernel on ``q``'s device and current stream."""
+def _check_kernel_inputs(q, k, v):
+    """What the CUDA kernels take; returns the shape."""
     B, S, H, Hkv, D = _check_shapes(q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernel takes float32 or bfloat16, not {q.dtype}")
@@ -141,6 +157,20 @@ def _launch(q, k, v, scale: float, causal: bool):
         raise ValueError("q, k and v must lie on one device")
     if B * H > 65535:
         raise ValueError(f"batch*heads {B * H} exceeds the kernel grid")
+    return B, S, H, Hkv, D
+
+
+def _raise_on_error(lib, err: int, name: str) -> None:
+    if err != 0:
+        lib.dml_cuda_error_string.restype = ctypes.c_char_p
+        lib.dml_cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.dml_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+def _launch(q, k, v, scale: float, causal: bool):
+    """The CUDA kernel on ``q``'s device and current stream."""
+    B, S, H, Hkv, D = _check_kernel_inputs(q, k, v)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, 1, S), dtype=torch.float32, device=q.device)
     if B * S * H * D == 0:
@@ -164,11 +194,7 @@ def _launch(q, k, v, scale: float, causal: bool):
             float(scale), int(bool(causal)),
             int(q.dtype == torch.bfloat16), stream,
         )
-    if err != 0:
-        lib.dml_cuda_error_string.restype = ctypes.c_char_p
-        lib.dml_cuda_error_string.argtypes = [ctypes.c_int]
-        msg = lib.dml_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_fwd launch failed: {msg} ({err})")
+    _raise_on_error(lib, err, KERNEL_NAME)
     launches.add()
     return out, lse
 
@@ -193,18 +219,207 @@ def flash_forward(
     return (out, lse) if with_lse else out
 
 
+def build_kernels() -> None:
+    """Compile (or load) the forward and backward kernels now, both nvcc
+    processes at once, instead of at their first launch."""
+    from distributed_machine_learning_tpu_torch.ops import _build
+
+    _build.build([KERNEL_NAME, BACKWARD_SOURCE])
+    _build.load(KERNEL_NAME)
+    _build.load(BACKWARD_SOURCE)
+
+
+def backward_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, laid out as lse: ``[B*H, 1, S]``."""
+    B, S, H, _ = out.shape
+    acc = _acc_dtype(out)
+    delta = (do.to(acc) * out.to(acc)).sum(dim=-1)  # [B, S, H]
+    return delta.permute(0, 2, 1).reshape(B * H, 1, S)
+
+
+def _recompute_reference(q, k, v, lse, do, delta, scale: float,
+                         causal: bool):
+    """``_bwd_recompute`` written densely, in the accumulation type:
+    returns (q, k, dO) as [B, S, Hkv, group, D] / [B, S, Hkv, D] and P, dS
+    as [B, Hkv, group, S_q, S_k]."""
+    B, S, H, Hkv, D = _check_shapes(q, k, v)
+    group = H // Hkv
+    acc = _acc_dtype(q)
+    qf = q.to(acc).reshape(B, S, Hkv, group, D)
+    dof = do.to(acc).reshape(B, S, Hkv, group, D)
+    kf, vf = k.to(acc), v.to(acc)
+    rows = lambda t: t.to(acc).reshape(B, Hkv, group, S, 1)  # noqa: E731
+    lse_r, delta_r = rows(lse), rows(delta)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    live = torch.isfinite(logits) & torch.isfinite(lse_r)
+    lse_safe = torch.where(torch.isfinite(lse_r), lse_r,
+                           torch.zeros_like(lse_r))
+    p = torch.where(live, torch.exp(logits - lse_safe), torch.zeros_like(logits))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta_r) * scale
+    return qf, kf, dof, p, ds
+
+
+def flash_bwd_dkdv_reference(q, k, v, lse, do, delta, scale: float,
+                             causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel dkdv: dV = P^T dO and dK = dS^T q, the q
+    heads of a group summed into their kv head; in k's and v's dtypes."""
+    qf, _, dof, p, ds = _recompute_reference(q, k, v, lse, do, delta, scale,
+                                             causal)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, lse, do, delta, scale: float,
+                           causal: bool) -> torch.Tensor:
+    """Plain version of kernel dq: dQ = dS k, in q's dtype."""
+    _, kf, _, _, ds = _recompute_reference(q, k, v, lse, do, delta, scale,
+                                           causal)
+    return torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(q.shape) \
+        .to(q.dtype)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, delta: torch.Tensor, scale: float,
+    causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch flash backward: ``(dq, dk, dv)``.
+
+    ``_bwd_recompute``'s math written densely: P = exp(q k^T * scale - lse)
+    in f32 with causal and fully masked (lse = -inf) entries at 0,
+    dS = P * (dO v^T - delta) * scale, then the two kernels' products."""
+    dk, dv = flash_bwd_dkdv_reference(q, k, v, lse, do, delta, scale, causal)
+    dq = flash_bwd_dq_reference(q, k, v, lse, do, delta, scale, causal)
+    return dq, dk, dv
+
+
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _launch_bwd(fn_name: str, counter: LaunchCounter, q, k, v, lse, do,
+                delta, scale: float, causal: bool, outs):
+    """One backward kernel on ``q``'s device and current stream, writing
+    into ``outs`` (allocated by the caller)."""
+    B, S, H, Hkv, D = _check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"dout {tuple(do.shape)}/{do.dtype} must match q "
+            f"{tuple(q.shape)}/{q.dtype} on one device"
+        )
+    if B * S * H * D == 0:
+        return
+    # [B*H, S] f32 rows, contiguous, as the kernels index them.
+    lse = lse.to(torch.float32).reshape(B * H, S).contiguous()
+    delta = delta.to(torch.float32).reshape(B * H, S).contiguous()
+    from distributed_machine_learning_tpu_torch.ops import _build
+
+    lib = _build.load(BACKWARD_SOURCE)
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * (6 + len(outs)) + _BWD_TAIL
+    strides = (ctypes.c_longlong * 16)(
+        *q.stride(), *k.stride(), *v.stride(), *do.stride()
+    )
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            B, S, H, Hkv, D, ctypes.addressof(strides), float(scale),
+            int(bool(causal)), int(q.dtype == torch.bfloat16), stream,
+        )
+    _raise_on_error(lib, err, counter.name)
+    counter.add()
+
+
+def _on_device(q: torch.Tensor) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    return q.device.type
+
+
+def flash_bwd_dkdv(q, k, v, lse, do, delta, scale: float,
+                   causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel dkdv: ``(dk, dv)`` at Hkv heads.  ``delta`` is
+    :func:`backward_delta`.  CUDA tensors run the kernel; CPU tensors run
+    the plain version."""
+    if _on_device(q) == "cpu":
+        return flash_bwd_dkdv_reference(q, k, v, lse, do, delta, scale, causal)
+    # Contiguous, as the kernel writes them (empty_like would keep a
+    # permuted layout of k).
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("dml_flash_bwd_dkdv", dkdv_launches, q, k, v, lse, do, delta,
+                scale, causal, (dk, dv))
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, lse, do, delta, scale: float,
+                 causal: bool) -> torch.Tensor:
+    """Kernel dq: ``dq``.  CUDA tensors run the kernel; CPU tensors run the
+    plain version."""
+    if _on_device(q) == "cpu":
+        return flash_bwd_dq_reference(q, k, v, lse, do, delta, scale, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("dml_flash_bwd_dq", dq_launches, q, k, v, lse, do, delta,
+                scale, causal, (dq,))
+    return dq
+
+
+def flash_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    out: Optional[torch.Tensor], lse: torch.Tensor, do: Optional[torch.Tensor],
+    scale: Optional[float] = None, causal: bool = False,
+    block_q: Optional[int] = None, block_k: Optional[int] = None,
+    *, q_side: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of flash attention; dk/dv at Hkv heads.
+    The dK/dV kernel runs first, then the dQ kernel, as in
+    ``_flash_backward``.
+
+    ``q_side``: optional precomputed ``(q, do, delta)`` (delta from
+    :func:`backward_delta`), as in the JAX package's ``_flash_backward``:
+    a caller that runs the backward per k/v chunk against the same q side
+    reduces delta once; ``out`` and ``do`` may then be None."""
+    if q_side is not None:
+        q, do, delta = q_side
+    else:
+        _on_device(q)
+        delta = backward_delta(out, do)
+    s = (q.shape[-1] ** -0.5) if scale is None else float(scale)
+    _default_blocks(q.shape[1], q.shape[-1], block_q, block_k, backward=True)
+    dk, dv = flash_bwd_dkdv(q, k, v, lse, do, delta, s, causal)
+    dq = flash_bwd_dq(q, k, v, lse, do, delta, s, causal)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_q, block_k):
-        return flash_forward(q, k, v, scale, causal, block_q, block_k)
+        if any(ctx.needs_input_grad[:3]):
+            # Refuse a tile the backward is not compiled for now, not after
+            # the forward has run.
+            _default_blocks(q.shape[1], q.shape[-1], block_q, block_k,
+                            backward=True)
+        out, lse = flash_forward(q, k, v, scale, causal, block_q, block_k,
+                                 with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, block_q, block_k)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet: the TPU kernels "
-            "_bwd_dkdv_kernel and _bwd_dq_kernel (ops/pallas_attention.py) "
-            "come with the trainer, next on ROADMAP.md queue A"
-        )
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, block_q, block_k = ctx.args
+        dq, dk, dv = flash_backward(q, k, v, out, lse, grad_out, scale,
+                                    causal, block_q, block_k)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -215,5 +430,6 @@ def flash_attention(
     """Flash softmax attention. q: [B, S, H, D] -> [B, S, H, D].
 
     k, v: [B, S, Hkv, D] with ``H % Hkv == 0``.  ``scale`` defaults to
-    1/sqrt(D).  Differentiating through it raises (backward not ported)."""
+    1/sqrt(D).  Differentiable: the backward runs the dK/dV and dQ kernels
+    (:func:`flash_backward`)."""
     return _FlashAttention.apply(q, k, v, scale, causal, block_q, block_k)

@@ -59,6 +59,67 @@ def test_kernel_reads_strided_inputs(card):
     assert (out - ref).abs().max().item() <= 2e-4
 
 
+def _rel_err(got, want):
+    """max |err| over max(1, max |want|): gradients grow with S, so the
+    tolerance is relative to the largest entry."""
+    want = want.float()
+    scale = max(1.0, want.abs().max().item())
+    return (got.float() - want).abs().max().item() / scale
+
+
+# f32: the kernels and the plain version differ only in summation order
+# (~1e-6 relative at S <= 512); bf16: each gradient is rounded to bf16
+# once (2**-8 relative) on both sides, so two roundings apart at most.
+@pytest.mark.parametrize("dtype,rtol", [("float32", 2e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("H,Hkv,D,S", [(8, 8, 64, 512), (8, 4, 16, 96),
+                                       (8, 1, 128, 200), (4, 2, 256, 70),
+                                       (2, 2, 40, 130)])
+def test_backward_kernels_match_plain_version(card, dtype, rtol, causal, H,
+                                              Hkv, D, S):
+    gen = torch.Generator().manual_seed(S + D + 1)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(2, S, h, D, generator=gen).to(card, dt)
+                   for h in (H, Hkv, Hkv, H))
+    out, lse = fa.flash_forward(q, k, v, 0.3, causal, with_lse=True)
+    before = (fa.dkdv_launches.count, fa.dq_launches.count)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, 0.3, causal)
+    ref = fa.flash_attention_backward_reference(
+        q, k, v, lse, do, fa.backward_delta(out, do), 0.3, causal)
+    torch.cuda.synchronize()
+    assert (fa.dkdv_launches.count, fa.dq_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert dq.dtype == dk.dtype == dv.dtype == dt
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert _rel_err(got, want) <= rtol, name
+
+
+@pytest.mark.parametrize("layout", ["fused_qkv", "heads_first"])
+def test_autograd_runs_the_backward_kernels(card, layout):
+    """loss.backward() through flash_attention on the card: a stride-0
+    dO (from .sum()) and q/k/v read in place from a fused [B, S, 3, H, D]
+    projection or from dense [B, H, S, D] tensors seen as [B, S, H, D]."""
+    gen = torch.Generator().manual_seed(7)
+    if layout == "fused_qkv":
+        leaf = torch.randn(2, 150, 3, 4, 32, generator=gen).to(card)
+        split = lambda t: t.unbind(2)  # noqa: E731
+    else:
+        leaf = torch.randn(3, 2, 4, 150, 32, generator=gen).to(card)
+        split = lambda t: (x.transpose(1, 2) for x in t.unbind(0))  # noqa: E731
+    qkv = leaf.clone().requires_grad_()
+    before = (fa.dkdv_launches.count, fa.dq_launches.count)
+    fa.flash_attention(*split(qkv), causal=True).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.dkdv_launches.count, fa.dq_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    ref_qkv = leaf.clone().requires_grad_()
+    rq, rk, rv = split(ref_qkv)
+    fa.flash_attention_reference(rq, rk, rv, 32 ** -0.5, True)[0].sum() \
+        .backward()
+    assert _rel_err(qkv.grad, ref_qkv.grad) <= 2e-4
+
+
 def test_engine_serves_on_the_card(card, tmp_path):
     from distributed_machine_learning_tpu_torch.models import build_model
     from distributed_machine_learning_tpu_torch.models.convert import (
@@ -86,3 +147,33 @@ def test_engine_serves_on_the_card(card, tmp_path):
     with torch.no_grad():
         ref = model.eval()(torch.from_numpy(x)).float().numpy()  # CPU, plain
     np.testing.assert_allclose(out, ref, atol=3e-2)
+
+
+def test_train_regressor_runs_on_the_card(card):
+    """A small flash transformer trains on the card: every step's backward
+    runs both kernels once per layer, and the losses are finite."""
+    from distributed_machine_learning_tpu_torch import tune
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+
+    config = {"model": "transformer", "d_model": 64, "num_heads": 4,
+              "num_layers": 2, "attention_type": "flash", "dropout": 0.1,
+              "compute_dtype": "bfloat16", "max_seq_length": 128,
+              "learning_rate": 1e-3, "num_epochs": 2, "batch_size": 8}
+    train, val = dummy_regression_data(num_samples=40, seq_len=128,
+                                       num_features=16)
+    records = []
+    counters = (fa.launches, fa.dkdv_launches, fa.dq_launches)
+    before = [c.count for c in counters]
+    with tune.session.standalone(devices=[card]):
+        tune.session._get_session()._report_fn = (
+            lambda m, c: records.append(m) or "continue")
+        tune.train_regressor(config, train_data=train, val_data=val)
+    fwd, dkdv, dq = (c.count - b for c, b in zip(counters, before))
+    steps = records[-1]["steps"]  # 32 rows / batch 8 = 4 steps an epoch
+    assert steps == 8 and dkdv == dq == 2 * steps
+    assert fwd == 2 * (steps + 2)  # + one 8-row eval block per epoch
+    assert all(np.isfinite(r["train_loss"]) for r in records)
+    assert records[-1]["device_bytes_in_use"] > 0
+

@@ -101,16 +101,27 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
 
 
 def test_backward_raises_instead_of_a_silent_plain_gradient():
+    """The backward takes its plain version only for CPU tensors (and then
+    counts no kernel launch); a tensor on any other device raises."""
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(4))
-    out = port.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="_bwd_dkdv_kernel"):
-        out.sum().backward()
+    before = (port.dkdv_launches.count, port.dq_launches.count)
+    port.flash_attention(q, k, v).sum().backward()
+    assert all(t.grad is not None and t.grad.shape == t.shape
+               for t in (q, k, v))
+    assert (port.dkdv_launches.count, port.dq_launches.count) == before
+    mq, mk, mv = (t.detach().to("meta") for t in (q, k, v))
+    lse = torch.empty((B * H, 1, S), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port.flash_backward(mq, mk, mv, mq, lse, mq)
 
 
 def test_fixed_kernel_tile_and_shape_checks():
     assert port._default_blocks(2048, 64) == (64, 64)
     assert port._default_blocks(2048, 256) == (32, 64)
     assert port._default_blocks(96, 16, block_q=64) == (64, 64)
+    assert port._default_blocks(2048, 256, backward=True) == (32, 32)
+    with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
+        port._default_blocks(2048, 256, block_k=64, backward=True)
     with pytest.raises(ValueError, match="compiled for tiles"):
         port._default_blocks(2048, 64, block_q=128)
     with pytest.raises(ValueError, match="head_dim"):

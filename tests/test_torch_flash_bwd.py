@@ -1,0 +1,154 @@
+"""The port's flash-attention backward against the JAX package's Pallas
+backward kernels.
+
+On the CPU the port's wrapper takes its plain backward
+(``flash_attention_backward_reference``); the JAX gradients come from
+``jax.vjp`` of ``flash_attention(..., interpret=True)``, which runs the
+Pallas ``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel`` in interpret mode, as
+tests/test_pallas_attention.py runs them.  Same numpy inputs and cotangent
+into both; f32 agrees to 2e-5.  The CUDA kernels are held against the
+same plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from distributed_machine_learning_tpu.ops.pallas_attention import (  # noqa: E402
+    flash_attention as jax_flash_attention,
+)
+from distributed_machine_learning_tpu_torch.ops import flash_attention as port  # noqa: E402
+
+# Shapes and cases of tests/test_torch_flash.py.
+B, S, H, D = 1, 32, 2, 8
+BQ = BK = 16
+
+CASES = {
+    "f32": dict(),
+    "f32_causal": dict(causal=True),
+    "gqa": dict(H=4, Hkv=2),
+    "mqa_causal": dict(H=4, Hkv=1, causal=True),
+    "custom_scale": dict(scale=0.21),
+    "seq_not_multiple_of_block": dict(S=40, causal=True),
+    "batch2": dict(B=2, H=4, Hkv=2),
+}
+
+
+def _inputs(seed, S=S, H=H, Hkv=H, D=D, B=B):
+    """q, k, v and a cotangent dO, from one numpy seed."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D))
+    return tuple(rng.normal(size=s).astype(np.float32) for s in shapes)
+
+
+def _case(name):
+    case = dict(CASES[name])
+    return case.pop("causal", False), case.pop("scale", None), case
+
+
+def _port_grads(q, k, v, do, scale, causal, dtype=torch.float32):
+    tq, tk, tv = (torch.from_numpy(a).to(dtype).requires_grad_()
+                  for a in (q, k, v))
+    out = port.flash_attention(tq, tk, tv, scale=scale, causal=causal)
+    out.backward(torch.from_numpy(do).to(dtype))
+    return tq.grad, tk.grad, tv.grad
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_backward_matches_pallas_kernels(name):
+    causal, scale, shape = _case(name)
+    q, k, v, do = _inputs(11, **shape)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_flash_attention(
+            a, b, c, scale=scale, causal=causal, block_q=BQ, block_k=BK,
+            interpret=True,
+        ),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    want = vjp(jnp.asarray(do))
+    got = _port_grads(q, k, v, do, scale, causal)
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, label
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   err_msg=label)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_backward_matches_autograd_in_f64(name):
+    """The plain backward (from the saved lse) against torch.autograd
+    through the plain forward, both in float64."""
+    causal, scale, shape = _case(name)
+    q, k, v, do = _inputs(12, **shape)
+    s = q.shape[-1] ** -0.5 if scale is None else scale
+    got = _port_grads(q, k, v, do, scale, causal, dtype=torch.float64)
+    tq, tk, tv = (torch.from_numpy(a).double().requires_grad_()
+                  for a in (q, k, v))
+    out, _ = port.flash_attention_reference(tq, tk, tv, s, causal)
+    want = torch.autograd.grad(out, (tq, tk, tv),
+                               torch.from_numpy(do).double())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-12)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_bf16_matches_pallas_kernels(causal):
+    """bf16 inputs: both sides recompute in f32 and round each gradient to
+    bf16 once, so they sit within a few bf16 ulps of the gradient's size."""
+    q, k, v, do = _inputs(13, H=4, Hkv=2)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_flash_attention(
+            a, b, c, causal=causal, block_q=BQ, block_k=BK, interpret=True),
+        bf(q), bf(k), bf(v),
+    )
+    want = vjp(bf(do))
+    got = _port_grads(*(np.asarray(bf(a), np.float32) for a in (q, k, v, do)),
+                      None, causal, dtype=torch.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.float().numpy(), w,
+                                   atol=2e-2 * max(1.0, np.abs(w).max()))
+
+
+def test_q_side_reuses_a_precomputed_delta():
+    """The ``q_side`` entry (``(q, do, delta)``) gives the gradients of
+    the plain entry, with neither O nor dO passed separately."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(14, H=4, Hkv=2))
+    out, lse = port.flash_forward(q, k, v, causal=True, with_lse=True)
+    want = port.flash_backward(q, k, v, out, lse, do, causal=True)
+    delta = port.backward_delta(out, do)
+    assert delta.shape == lse.shape
+    got = port.flash_backward(None, k, v, None, lse, None, causal=True,
+                              q_side=(q, do, delta))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fully_masked_rows_get_zero_gradient():
+    """A row whose lse is -inf (no live column) contributes P = 0."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(15))
+    out, lse = port.flash_forward(q, k, v, with_lse=True)
+    lse = lse.clone()
+    lse[:, :, 3] = float("-inf")
+    dq, dk, dv = port.flash_backward(q, k, v, out, lse, do)
+    assert torch.isfinite(dq).all() and torch.isfinite(dk).all()
+    assert torch.equal(dq[:, 3], torch.zeros_like(dq[:, 3]))
+
+
+def test_backward_tile_is_checked_before_the_forward_runs():
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(16, S=8, D=256))
+    q.requires_grad_()
+    # (32, 64) is the forward's tile at head_dim 256; the backward's is
+    # (32, 32), so asking for gradients with block_k=64 raises at once.
+    with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
+        port.flash_attention(q, k, v, block_k=64)
+    out = port.flash_attention(q.detach(), k, v, block_k=64)
+    assert out.shape == q.shape

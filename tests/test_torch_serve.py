@@ -321,9 +321,22 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.ops.attention",
     "distributed_machine_learning_tpu_torch.ops.flash_attention",
     "distributed_machine_learning_tpu_torch.ops._build",
+    "distributed_machine_learning_tpu_torch.ops.flops",
+    "distributed_machine_learning_tpu_torch.ops.losses",
+    "distributed_machine_learning_tpu_torch.ops.optimizers",
+    "distributed_machine_learning_tpu_torch.ops.schedules",
+    "distributed_machine_learning_tpu_torch.data",
+    "distributed_machine_learning_tpu_torch.data.loader",
+    "distributed_machine_learning_tpu_torch.data.synthetic",
+    "distributed_machine_learning_tpu_torch.perf.costmodel",
     "distributed_machine_learning_tpu_torch.serve",
+    "distributed_machine_learning_tpu_torch.tune",
+    "distributed_machine_learning_tpu_torch.tune.session",
+    "distributed_machine_learning_tpu_torch.tune.trainable",
+    "distributed_machine_learning_tpu_torch.tune._regression_program",
     "distributed_machine_learning_tpu_torch.utils.device",
     "distributed_machine_learning_tpu_torch.utils.registry",
+    "distributed_machine_learning_tpu_torch.utils.seeding",
     "chip_smoke",
 ]
 
