@@ -129,18 +129,25 @@ class _StandaloneTrial:
 
 
 @contextlib.contextmanager
-def standalone(devices=None):
+def standalone(devices=None, report_fn=None):
     """Run a trainable OUTSIDE ``tune.run``: a no-op session is installed
     for the calling thread — reports are accepted and discarded (decision
     always "continue"), no checkpoint to resume from.
 
     ``devices``: the ``torch.device``s the trial runs on (``[cpu]`` to
     train on the CPU; the trainable's default is the current card).
+    ``report_fn``: optional ``fn(metrics, checkpoint)`` that sees each
+    report first (the decision stays "continue").
     """
+    def report(metrics, checkpoint):
+        if report_fn is not None:
+            report_fn(metrics, checkpoint)
+        return "continue"
+
     prev = getattr(_session_store, "session", None)
     _session_store.session = Session(
         trial=_StandaloneTrial(),
-        report_fn=lambda metrics, checkpoint: "continue",
+        report_fn=report,
         checkpoint_loader=lambda: None,
         devices=devices,
     )

@@ -100,19 +100,25 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     assert port.launches.count == before
 
 
-def test_backward_raises_instead_of_a_silent_plain_gradient():
-    """The backward takes its plain version only for CPU tensors (and then
-    counts no kernel launch); a tensor on any other device raises."""
+def test_backward_takes_plain_version_only_on_cpu():
+    """CPU tensors take the plain backward and count no kernel launch."""
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(4))
     before = (port.dkdv_launches.count, port.dq_launches.count)
     port.flash_attention(q, k, v).sum().backward()
     assert all(t.grad is not None and t.grad.shape == t.shape
                for t in (q, k, v))
     assert (port.dkdv_launches.count, port.dq_launches.count) == before
-    mq, mk, mv = (t.detach().to("meta") for t in (q, k, v))
+
+
+def test_backward_raises_instead_of_a_silent_plain_gradient():
+    """A tensor on neither the card nor the CPU raises: no device falls
+    back to the plain backward."""
+    mq, mk, mv = (torch.from_numpy(a).to("meta") for a in _inputs(4))
     lse = torch.empty((B * H, 1, S), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         port.flash_backward(mq, mk, mv, mq, lse, mq)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port.flash_bwd_dq(mq, mk, mv, lse, mq, lse, 0.1, False)
 
 
 def test_fixed_kernel_tile_and_shape_checks():

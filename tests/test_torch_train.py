@@ -161,10 +161,9 @@ def _run_port(config, checkpoint=None):
     train, val = dummy_regression_data(**DATA)
     trainable = tune.with_parameters(tune.train_regressor, train_data=train,
                                      val_data=val)
-    with tune.session.standalone(devices=[CPU]):
-        sess = tune.session._get_session()
-        sess._report_fn = _recorder(records, checkpoints)
-        sess._checkpoint_loader = lambda: checkpoint
+    with tune.session.standalone(devices=[CPU],
+                                 report_fn=_recorder(records, checkpoints)):
+        tune.session._get_session()._checkpoint_loader = lambda: checkpoint
         trainable(config)
     return records, checkpoints
 
