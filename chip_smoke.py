@@ -8,14 +8,18 @@ nonzero; nothing is caught and passed over):
 
 1. build  — the card's name and power limit; every CUDA kernel compiled
    from the sources in the checkout (one nvcc per source, all at once),
-   with ptxas's registers and spills per kernel.
+   with ptxas's registers and spills per kernel and each library's
+   tensor-core instructions (HGMMA/HMMA in ``cuobjdump -sass``) per
+   kernel; a bf16 tensor-core kernel without HGMMA fails the phase.
 2. kernel — the forward kernel held against its plain PyTorch version on
    the card over a grid of dtypes, causal flags, grouped-kv layouts, head
-   dims, sequence lengths and scales; then timed at the flagship shape
-   beside its plain version and the PyTorch library call that computes
-   the same function.
+   dims (D = 33 among them), sequence lengths, scales and a transposed
+   memory layout (the last two go through the wrapper's conforming copy
+   in bf16); then timed at the flagship shape beside its plain version
+   and the PyTorch library call that computes the same function.
 3. kernel_bwd — the same for the two backward kernels (dK/dV and dQ),
-   timed at the flagship training shape.
+   timed at the flagship training shape, where the bf16 dK/dV kernel is
+   also rerun and must give the same bits.
 4. serve  — the bench flagship transformer (d_model 512, 8 heads, 4
    layers, seq 2048, bf16, flash attention) written as a bundle with
    seeded weights, loaded back and served over HTTP by the port's
@@ -104,23 +108,71 @@ def phase_build():
 
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     seconds = _build.build(names)
-    ptxas = {
-        name: [line.strip() for line in _build.build_log(name).splitlines()
-               if "registers" in line or "spill" in line]
-        for name in names
-    }
+    ptxas = {name: _ptxas_by_kernel(_build.build_log(name)) for name in names}
+    tensor_cores = {}
+    for name in names:
+        counts = _build.sass_counts(name)
+        if counts is None:
+            tensor_cores[name] = None
+            continue
+        tensor_cores[name] = {
+            op: sum(c[op] for c in counts.values()) for op in ("HGMMA", "HMMA")
+        }
+        tensor_cores[name]["by_kernel"] = {
+            k: c for k, c in counts.items() if any(c.values())}
+        idle = [k for k, c in counts.items()
+                if "_wgmma" in k and c["HGMMA"] == 0]
+        if idle:
+            raise AssertionError(f"build: no HGMMA in the tensor-core "
+                                 f"kernels {idle}")
     emit("build", card=smi_line(), kernels=names, seconds=seconds,
-         ptxas=ptxas)
+         ptxas=ptxas, tensor_cores=tensor_cores,
+         tensor_cores_note=None if all(tensor_cores.values()) else
+         "null: the toolkit has no cuobjdump")
+
+
+def _ptxas_by_kernel(log: str) -> dict:
+    """{kernel: "R registers, S spill bytes"} from nvcc's -Xptxas -v."""
+    import re
+
+    from distributed_machine_learning_tpu_torch.ops import _build
+
+    out, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = _build._kernel_name(m.group(1))
+            out[kernel] = {}
+        elif kernel is not None:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[kernel]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[kernel]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    return {k: f"{v.get('registers')} registers, {v.get('spill_bytes')} "
+               f"spill bytes" for k, v in out.items()}
 
 
 # -- phase 2 ----------------------------------------------------------------
 
 
-def _qkv(B, S, H, Hkv, D, dtype, seed):
+def _layout(t, layout: str):
+    """``t`` [B, S, H, D] as is ("dense"), or the same values stored as
+    [B, H, D, S] ("transposed": D is not innermost, so the bf16 kernels
+    take the wrapper's conforming copy)."""
+    if layout == "dense":
+        return t
+    return t.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
+
+def _qkv(B, S, H, Hkv, D, dtype, seed, layout="dense"):
     import torch
 
     gen = torch.Generator().manual_seed(seed)
-    mk = lambda h: torch.randn(B, S, h, D, generator=gen).to("cuda", dtype)
+    mk = lambda h: _layout(  # noqa: E731
+        torch.randn(B, S, h, D, generator=gen).to("cuda", dtype), layout)
     return mk(H), mk(Hkv), mk(Hkv)
 
 
@@ -158,11 +210,16 @@ def _rel_err(got, want) -> float:
     return (got.float() - want).abs().max().item() / (top if top > 0 else 1.0)
 
 
-# Relative to the largest entry (_rel_err).  f32: the kernels and the
-# plain versions differ only in summation order, ~1e-6.  bf16: both sides
-# accumulate in f32 and round each entry to bf16 once, so an entry differs
-# by at most one bf16 ulp, at most 2**-7 = 7.8e-3 of the largest entry;
-# 2e-2 leaves 2.5x that, and a kernel off by 3 % everywhere fails.
+# Relative to the largest entry (_rel_err).  f32: the kernels (CUDA-core
+# FMAs) and the plain versions differ only in summation order, ~1e-6.
+# bf16: both sides accumulate in f32 and round each output entry to bf16
+# once, at most one bf16 ulp apart, at most 2**-7 = 7.8e-3 of the largest
+# entry.  The tensor-core kernels round where the plain versions do not:
+# the forward carries P into P V as two bf16 parts (high and the rounded
+# rest, P to about 2**-16), and the dK/dV kernel rounds P^T and dS^T to
+# bf16 before P^T dO and dS^T Q (relative 2**-9 per entry, averaging out
+# over the S terms of each sum).  dQ runs on the CUDA cores in f32.  2e-2
+# leaves room for both, and a kernel off by 3 % everywhere fails.
 KERNEL_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
@@ -184,22 +241,27 @@ def phase_kernel():
             for H, Hkv in ((8, 8), (8, 4), (8, 1)):
                 for D in (16, 64, 128):
                     for S in (96, 2048):
-                        cases.append((dtype, causal, H, Hkv, D, S, None))
-            # A non-default scale, odd head dims and the largest head dim.
-            cases.append((dtype, causal, 8, 4, 64, 96, 0.37))
-            cases.append((dtype, causal, 8, 2, 40, 130, 0.2))
-            cases.append((dtype, causal, 4, 4, 256, 200, None))
+                        cases.append((dtype, causal, H, Hkv, D, S, None,
+                                      "dense"))
+            # A non-default scale, odd head dims, the largest head dim, and
+            # inputs the bf16 kernel reads through the conforming copy.
+            cases.append((dtype, causal, 8, 4, 64, 96, 0.37, "dense"))
+            cases.append((dtype, causal, 8, 2, 40, 130, 0.2, "dense"))
+            cases.append((dtype, causal, 4, 4, 256, 200, None, "dense"))
+            cases.append((dtype, causal, 8, 2, 33, 130, None, "dense"))
+            cases.append((dtype, causal, 8, 4, 64, 200, None, "transposed"))
+            cases.append((dtype, causal, 4, 1, 33, 2048, 0.3, "transposed"))
     worst = {"out": 0.0, "out_rel": 0.0, "lse": 0.0}
-    for i, (dtype, causal, H, Hkv, D, S, scale) in enumerate(cases):
+    for i, (dtype, causal, H, Hkv, D, S, scale, layout) in enumerate(cases):
         B = 2 if S >= 1024 else 3
-        q, k, v = _qkv(B, S, H, Hkv, D, dtype, seed=i)
+        q, k, v = _qkv(B, S, H, Hkv, D, dtype, seed=i, layout=layout)
         err_o, rel_o, err_l = _compare(q, k, v, scale, causal)
         if not (rel_o <= tol_out[dtype] and err_l <= tol_lse):
             raise AssertionError(
                 f"flash_fwd disagrees with its plain version: dtype={dtype} "
-                f"causal={causal} H={H} Hkv={Hkv} D={D} S={S} scale={scale}: "
-                f"rel out err {rel_o} (tol {tol_out[dtype]}), |lse err| "
-                f"{err_l} (tol {tol_lse})"
+                f"causal={causal} H={H} Hkv={Hkv} D={D} S={S} scale={scale} "
+                f"layout={layout}: rel out err {rel_o} (tol "
+                f"{tol_out[dtype]}), |lse err| {err_l} (tol {tol_lse})"
             )
         worst["out"] = max(worst["out"], err_o)
         worst["out_rel"] = max(worst["out_rel"], rel_o)
@@ -244,15 +306,17 @@ def phase_kernel():
 # -- phase 3 ----------------------------------------------------------------
 
 
-def _bwd_inputs(B, S, H, Hkv, D, dtype, scale, causal, seed):
+def _bwd_inputs(B, S, H, Hkv, D, dtype, scale, causal, seed,
+                layout="dense"):
     """q, k, v, dO and the forward's lse and delta, on the card."""
     import torch
 
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
 
-    q, k, v = _qkv(B, S, H, Hkv, D, dtype, seed)
+    q, k, v = _qkv(B, S, H, Hkv, D, dtype, seed, layout)
     gen = torch.Generator().manual_seed(seed + 1)
-    do = torch.randn(B, S, H, D, generator=gen).to("cuda", dtype)
+    do = _layout(torch.randn(B, S, H, D, generator=gen).to("cuda", dtype),
+                 layout)
     out, lse = fa.flash_forward(q, k, v, scale, causal, with_lse=True)
     return q, k, v, do, lse, fa.backward_delta(out, do)
 
@@ -268,39 +332,44 @@ def phase_kernel_bwd():
     tol = {dt: KERNEL_TOL[str(dt).split(".")[1]]
            for dt in (torch.float32, torch.bfloat16)}
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    n = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for causal in (False, True):
-            for H, Hkv in ((8, 8), (8, 4), (8, 1)):
-                for D in (16, 40, 64, 128, 256):
-                    for S in (96, 130, 2048):
-                        for scale in (None, 0.37):
-                            B = 1 if S >= 1024 else 2
-                            s = D ** -0.5 if scale is None else scale
-                            q, k, v, do, lse, delta = _bwd_inputs(
-                                B, S, H, Hkv, D, dtype, scale, causal, n)
-                            dk, dv = fa.flash_bwd_dkdv(q, k, v, lse, do,
-                                                       delta, s, causal)
-                            dq = fa.flash_bwd_dq(q, k, v, lse, do, delta, s,
-                                                 causal)
-                            ref = fa.flash_attention_backward_reference(
-                                q, k, v, lse, do, delta, s, causal)
-                            torch.cuda.synchronize()
-                            for name, got, want in zip(("dq", "dk", "dv"),
-                                                       (dq, dk, dv), ref):
-                                err = _rel_err(got, want)
-                                if (got.shape != want.shape
-                                        or got.dtype != dtype
-                                        or not err <= tol[dtype]):
-                                    raise AssertionError(
-                                        f"flash_bwd {name} disagrees with its "
-                                        f"plain version: dtype={dtype} "
-                                        f"causal={causal} H={H} Hkv={Hkv} "
-                                        f"D={D} S={S} scale={scale}: rel "
-                                        f"err {err} (tol {tol[dtype]})")
-                                worst[name] = max(worst[name], err)
-                            n += 1
-                            del q, k, v, do, lse, delta, dq, dk, dv, ref
+    cases = [
+        (dtype, causal, H, Hkv, D, S, scale, "dense")
+        for dtype in (torch.float32, torch.bfloat16)
+        for causal in (False, True)
+        for H, Hkv in ((8, 8), (8, 4), (8, 1))
+        for D in (16, 33, 40, 64, 128, 256)
+        for S in (96, 130, 2048)
+        for scale in (None, 0.37)
+    ] + [
+        # q, k, v and dO stored [B, H, D, S]: the bf16 dK/dV kernel takes
+        # the wrapper's conforming copy, the dQ kernel reads the strides.
+        (dtype, causal, H, Hkv, D, S, None, "transposed")
+        for dtype in (torch.float32, torch.bfloat16)
+        for causal in (False, True)
+        for H, Hkv, D, S in ((8, 2, 64, 130), (8, 8, 33, 2048))
+    ]
+    for n, (dtype, causal, H, Hkv, D, S, scale, layout) in enumerate(cases):
+        B = 1 if S >= 1024 else 2
+        s = D ** -0.5 if scale is None else scale
+        q, k, v, do, lse, delta = _bwd_inputs(B, S, H, Hkv, D, dtype, scale,
+                                              causal, n, layout)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, lse, do, delta, s, causal)
+        dq = fa.flash_bwd_dq(q, k, v, lse, do, delta, s, causal)
+        ref = fa.flash_attention_backward_reference(q, k, v, lse, do, delta,
+                                                    s, causal)
+        torch.cuda.synchronize()
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            err = _rel_err(got, want)
+            if (got.shape != want.shape or got.dtype != dtype
+                    or not err <= tol[dtype]):
+                raise AssertionError(
+                    f"flash_bwd {name} disagrees with its plain version: "
+                    f"dtype={dtype} causal={causal} H={H} Hkv={Hkv} D={D} "
+                    f"S={S} scale={scale} layout={layout}: rel err {err} "
+                    f"(tol {tol[dtype]})")
+            worst[name] = max(worst[name], err)
+        del q, k, v, do, lse, delta, dq, dk, dv, ref
+    n = len(cases)
 
     # The training shape: one layer's backward at the flagship batch.
     B, S, H, D = 8, FLAGSHIP["max_seq_length"], FLAGSHIP["num_heads"], 64
@@ -310,6 +379,13 @@ def phase_kernel_bwd():
     args = (q, k, v, lse, do, delta, s, False)
     dk, dv = fa.flash_bwd_dkdv(*args)
     dq = fa.flash_bwd_dq(*args)
+    # No atomics: a rerun gives the same bits.
+    dk2, dv2 = fa.flash_bwd_dkdv(*args)
+    rerun = max((dk2.float() - dk.float()).abs().max().item(),
+                (dv2.float() - dv.float()).abs().max().item())
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"flash_bwd_dkdv: a rerun differs by {rerun}")
+    del dk2, dv2
     ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(*args)
     ref_dq = fa.flash_bwd_dq_reference(*args)
     torch.cuda.synchronize()
@@ -362,7 +438,8 @@ def phase_kernel_bwd():
         }
     emit("kernel_bwd", card=torch.cuda.get_device_name(0), cases=n,
          max_rel_err=worst, shape=[B, S, H, D], dtype="bfloat16",
-         flagship_rel_err=flagship_rel, **timing)
+         flagship_rel_err=flagship_rel, dkdv_rerun_max_abs_diff=rerun,
+         **timing)
     return timing
 
 
@@ -920,7 +997,9 @@ def main() -> int:
             "replaces": f"distributed_machine_learning_tpu/ops/{replaces}",
             "launches": launches[name],
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")},
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "tflops")},
+            "bound_share": t["bound_ms"] / t["ms"],
         })
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,8 @@
 // all accumulated in f32 and written once in the input dtype.  Nothing of
 // size S x S reaches device memory.
 //
-// Design.  The TPU grid carries its accumulators in VMEM scratch across a
-// sequential grid axis.  Here each thread block owns one output tile and
+// Ownership.  The TPU grid carries its accumulators in VMEM scratch across
+// a sequential grid axis.  Here each thread block owns one output tile and
 // loops over the other axis itself, with its accumulator in f32 registers
 // for the whole loop:
 //   * dkdv: one block per (b*Hkv + kv_head, kv tile).  It loops over the
@@ -24,22 +24,45 @@
 //   * dq: one block per (b*H + head, q tile), looping over kv tiles; k and
 //     v are read at Hkv heads through the `_kv_row_map` rule.
 // The causal liveness rule is the TPU kernels': a (q tile, kv tile) pair
-// is computed iff k_start <= q_start + block_q - 1.  Tensors are read
-// through their element strides ([B, S, H, D] in any layout; autograd may
-// hand in an expanded dO with stride 0) and the ragged edges of S and D
-// are masked, so any S and any D in 1..256 work.
+// is computed iff k_start <= q_start + block_q - 1.
 //
 // Bound.  At the flagship training shape (B=8, S=2048, H=8, D=64, bf16,
 // non-causal) dkdv does 8*B*H*S^2*D = 137 GFLOP and dq 6*B*H*S^2*D =
 // 103 GFLOP against ~0.1 GB of tensor traffic: both are bound by
-// operations.  This first version runs f32 FMAs on the CUDA cores from
-// tiles staged in shared memory as f32, far from the tensor-core bound;
-// its measured times sit in PERF.md.
+// operations.
+//
+// bf16 dkdv: `flash_bwd_dkdv_kernel_wgmma`, on the tensor cores.  Two
+// warpgroups; each owns 64 kv rows (or, at D > 64, the same 64 rows and
+// half of the head dim of dK/dV, so that both accumulators fit in
+// registers).  K and V stay in shared memory as bf16 (the swizzled layout
+// of hopper.cuh); Q, dO, lse and delta of each q tile stream through a
+// two-stage cp.async ring, so tile i+1 loads while tile i computes.
+// S^T = K Q^T and dP^T = V dO^T are wgmmas from shared memory (all four
+// operands K-major in the head dim).  P^T = exp2(S^T scale log2(e) -
+// lse log2(e)) and dS^T = P^T (dP^T - delta) scale are formed in f32 on
+// the accumulator fragments, one ex2 instruction per entry, the mask
+// applied only on the ragged and diagonal tiles.  Both are rounded to
+// bf16 in registers, and dV += P^T dO, dK += dS^T Q are register-A wgmmas
+// with dO and Q read MN-major from the same tiles.  The rounding of P^T
+// and dS^T to bf16 is the one rounding point the f32 reference does not
+// have (it moves a whole training step 50x less than the forward's
+// rounding of P did, PERF.md).  The wrapper hands in unit-stride,
+// 16-byte-aligned rows with D a multiple of 8 (ops/flash_attention.py
+// pads and copies what does not conform).
+//
+// f32 dkdv and dq (both dtypes): CUDA-core FMAs from tiles staged in
+// shared memory as f32, reading every tensor through its element strides
+// (autograd may hand in an expanded dO with stride 0) and masking the
+// ragged edges of S and D, so any layout and any D in 1..256 work.
+//
+// Measured times sit in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -450,22 +473,268 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tiles per head-dim bucket; ops/flash_attention.py::BACKWARD_TILES mirrors
-// this table.  Untuned: the first correct choice that fits shared memory
-// (the largest, D <= 128 at 64 x 64, takes 174 KB in dkdv).
+// ---- bf16 dK/dV on the tensor cores --------------------------------------
+
+template <int DMAX, int BQ, int DSPLIT>
+constexpr size_t dkdv_wgmma_smem_bytes() {
+  // K and V [BKV x DMAX]; STAGES stages of Q and dO [BQ x DMAX], bf16, and
+  // of lse and delta [BQ] f32; plus the slack that aligns the base.
+  using hopper::STAGES;
+  return (size_t)2 * DMAX * (2 * (128 / DSPLIT) + 2 * STAGES * BQ) +
+         8 * STAGES * BQ + 1024;
+}
+
+// P^T and dS^T of one (kv tile, q tile) pair on this thread's fragments
+// (kv rows kvrow0 + 8*(e/2), q columns qt0 + 8j + 2*c4 + e%2), in place of
+// S^T and dP^T.  MASK applies the ragged-edge and causal rules; a row with
+// lse = -inf gives 0 either way.
+template <bool MASK, int BQ>
+__device__ __forceinline__ void recompute_wgmma(
+    float (&sT)[BQ / 2], float (&dpT)[BQ / 2], const float* s_lse,
+    const float* s_delta, int qt0, int col0, int kvrow0, int S, int causal,
+    float sl2, float scale) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qc = 8 * j + col0 + (e & 1);
+      const float l = s_lse[qc];
+      bool live = isfinite(l);
+      if (MASK) {
+        const int qrow = qt0 + qc;
+        live = live && qrow < S && !(causal && kvrow0 + 8 * (e >> 1) > qrow);
+      }
+      const float p =
+          live ? hopper::fast_exp2(sT[4 * j + e] * sl2 - l * hopper::kLog2e)
+               : 0.f;
+      sT[4 * j + e] = p;
+      dpT[4 * j + e] = p * (dpT[4 * j + e] - s_delta[qc]) * scale;
+    }
+}
+
+template <int DMAX, int BQ, int DSPLIT>
+__global__ void __launch_bounds__(256, 1) flash_bwd_dkdv_kernel_wgmma(
+    const hopper::bf16* __restrict__ q, const hopper::bf16* __restrict__ k,
+    const hopper::bf16* __restrict__ v, const hopper::bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    hopper::bf16* __restrict__ dk, hopper::bf16* __restrict__ dv, int S,
+    int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, Strides dos,
+    float scale, int causal) {
+  using namespace hopper;
+  constexpr int NT = 256;
+  constexpr int BKV = 128 / DSPLIT;  // kv rows per block
+  constexpr int DN = DMAX / DSPLIT;  // dK/dV columns per warpgroup
+  constexpr int NCH = DN < 128 ? DN : 128;  // columns per dK/dV wgmma
+  constexpr uint32_t kKVBytes = BKV * DMAX * 2;
+  constexpr uint32_t kQBytes = BQ * DMAX * 2;
+  static_assert(DMAX % 64 == 0 && DN % 64 == 0 && BQ % 16 == 0, "tiles");
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sV = sK + kKVBytes;
+  auto sQ = [&](int st) { return sV + kKVBytes + st * 2 * kQBytes; };
+  auto sdO = [&](int st) { return sQ(st) + kQBytes; };
+  // [STAGES][lse, delta][BQ] f32 after the Q and dO stages.
+  const uint32_t sRows = sV + kKVBytes + 2 * STAGES * kQBytes;
+  const float* rows =
+      reinterpret_cast<float*>(smem_raw + (sRows - smem_u32(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int kv_sub = wg / DSPLIT;  // which 64 kv rows
+  const int dpart = wg % DSPLIT;   // which DN columns of dK/dV
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;
+  const int c4 = tid % 4;
+  const int bkv = blockIdx.y;  // b * Hkv + kv_head
+  const int b = bkv / Hkv;
+  const int hk = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.x * BKV;
+  const int kvrow0 = k0 + 64 * kv_sub + 16 * warp + g;  // and kvrow0 + 8
+
+  const int nq = (S + BQ - 1) / BQ;
+  // Causal: q tile t is live iff t*BQ + BQ - 1 >= k0, i.e. t >= k0 / BQ.
+  const int t0 = causal ? k0 / BQ : 0;
+  const int n_t = nq - t0;
+  const int n_it = group * n_t;
+
+  // Q, dO, lse and delta of step `it` (q head hk*group + it / n_t, q tile
+  // t0 + it % n_t) into stage it % STAGES.
+  auto load_q_side = [&](int it) {
+    const int st = it % STAGES;
+    const int h = hk * group + it / n_t;
+    const int qt0 = (t0 + it % n_t) * BQ;
+    load_tile<DMAX, BQ, NT>(sQ(st), q + b * qs.b + h * qs.h, qs.s, qt0, S, D,
+                            tid);
+    load_tile<DMAX, BQ, NT>(sdO(st), dout + b * dos.b + h * dos.h, dos.s,
+                            qt0, S, D, tid);
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ;
+      const float* src = (tid < BQ ? lse : delta) +
+                         (long long)(b * H + h) * S + qt0 + r;
+      const bool ok = qt0 + r < S;
+      cp_async4(sRows + 4 * (st * 2 * BQ + tid), ok ? src : lse, ok);
+    }
+  };
+
+  // The ring: K and V with step 0, then one commit group per step.
+  load_tile<DMAX, BKV, NT>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, S, D, tid);
+  load_tile<DMAX, BKV, NT>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, S, D, tid);
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) {
+    if (it < n_it) load_q_side(it);
+    cp_async_commit();
+  }
+
+  float acc_dk[DN / 2], acc_dv[DN / 2];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) {
+    acc_dk[i] = 0.f;
+    acc_dv[i] = 0.f;
+  }
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % STAGES;
+    if (it + STAGES - 1 < n_it) load_q_side(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // step it (and K, V) have landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 kv rows.
+    float sT[BQ / 2], dpT[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      sT[i] = 0.f;
+      dpT[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      const uint32_t kv_off = (kk / 4) * BKV * 128 + kv_sub * 64 * 128 +
+                              (kk % 4) * 32;
+      const uint32_t q_off = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+      Wgmma<BQ>::ss(sT, desc_k_major(sK + kv_off),
+                    desc_k_major(sQ(st) + q_off), kk > 0);
+      Wgmma<BQ>::ss(dpT, desc_k_major(sV + kv_off),
+                    desc_k_major(sdO(st) + q_off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sT);
+    fence_regs(dpT);
+
+    // P^T and dS^T on the fragments.  Only the ragged last q tile and q
+    // tiles that cross this warpgroup's causal diagonal need the mask.
+    const int qt0 = (t0 + it % n_t) * BQ;
+    const float* s_lse = rows + st * 2 * BQ;
+    const float* s_delta = s_lse + BQ;
+    if (qt0 + BQ > S || (causal && k0 + 64 * kv_sub + 63 > qt0))
+      recompute_wgmma<true, BQ>(sT, dpT, s_lse, s_delta, qt0, 2 * c4, kvrow0,
+                                S, causal, sl2, scale);
+    else
+      recompute_wgmma<false, BQ>(sT, dpT, s_lse, s_delta, qt0, 2 * c4,
+                                 kvrow0, S, causal, sl2, scale);
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 as the
+    // A operands.
+    uint32_t ap[BQ / 16][4], ads[BQ / 16][4];
+    to_a_fragments<BQ>(sT, ap);
+    to_a_fragments<BQ>(dpT, ads);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int nc = 0; nc < DN / NCH; ++nc) {
+        const uint32_t off =
+            kk * 2048 + (dpart * (DN / 64) + nc * (NCH / 64)) * BQ * 128;
+        Wgmma<NCH>::rs(
+            *reinterpret_cast<float(*)[NCH / 2]>(&acc_dv[nc * NCH / 2]),
+            ap[kk], desc_mn_major(sdO(st) + off, BQ * 128));
+        Wgmma<NCH>::rs(
+            *reinterpret_cast<float(*)[NCH / 2]>(&acc_dk[nc * NCH / 2]),
+            ads[kk], desc_mn_major(sQ(st) + off, BQ * 128));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    __syncthreads();  // every warpgroup is done with stage st
+  }
+
+  // dK, dV: contiguous [B, S, Hkv, D].
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kvrow0 + 8 * r;
+    if (row >= S) continue;
+    const long long base = (((long long)b * S + row) * Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j) {
+      const int d = dpart * DN + 8 * j + 2 * c4;
+      if (d < D) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + base + d) =
+            __floats2bfloat162_rn(acc_dk[4 * j + 2 * r],
+                                  acc_dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + base + d) =
+            __floats2bfloat162_rn(acc_dv[4 * j + 2 * r],
+                                  acc_dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int DMAX, int BQ, int DSPLIT>
+cudaError_t launch_dkdv_wgmma(const Args& a, cudaStream_t stream) {
+  using hopper::bf16;
+  constexpr size_t smem = dkdv_wgmma_smem_bytes<DMAX, BQ, DSPLIT>();
+  auto kern = flash_bwd_dkdv_kernel_wgmma<DMAX, BQ, DSPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int BKV = 128 / DSPLIT;
+  const dim3 grid((a.S + BKV - 1) / BKV, a.B * a.Hkv);
+  kern<<<grid, 256, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.H,
+      a.Hkv, a.D, a.qs, a.ks, a.vs, a.dos, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// bf16 dK/dV tiles per head-dim bucket, (block_q, block_k) = (BQ,
+// 128 / DSPLIT); ops/flash_attention.py::BACKWARD_TILES["flash_bwd_dkdv"]
+// ["bfloat16"] mirrors this table.  Shared memory: 66, 98 and 130 KB.
+// 32-row q tiles at D <= 64 measured slower (PERF.md).
+cudaError_t dispatch_dkdv_wgmma(const Args& a, cudaStream_t st) {
+  if (!hopper::tensor_core_operand(a.q, a.qs, a.D) ||
+      !hopper::tensor_core_operand(a.k, a.ks, a.D) ||
+      !hopper::tensor_core_operand(a.v, a.vs, a.D) ||
+      !hopper::tensor_core_operand(a.dout, a.dos, a.D))
+    return cudaErrorInvalidValue;
+  if (a.D <= 64) return launch_dkdv_wgmma<64, 64, 1>(a, st);
+  if (a.D <= 128) return launch_dkdv_wgmma<128, 64, 2>(a, st);
+  return launch_dkdv_wgmma<256, 32, 2>(a, st);
+}
+
+// CUDA-core tiles per head-dim bucket (dq in both dtypes, dkdv in f32);
+// ops/flash_attention.py::BACKWARD_TILES mirrors this table.  Untuned:
+// the first correct choice that fits shared memory (the largest, D <= 128
+// at 64 x 64, takes 174 KB in dkdv).
 template <typename T, bool DKDV>
 cudaError_t dispatch(const Args& a, cudaStream_t st) {
-  if (a.D <= 32)
-    return DKDV ? launch_dkdv<T, 32, 64, 64>(a, st)
-                : launch_dq<T, 32, 64, 64>(a, st);
-  if (a.D <= 64)
-    return DKDV ? launch_dkdv<T, 64, 64, 64>(a, st)
-                : launch_dq<T, 64, 64, 64>(a, st);
-  if (a.D <= 128)
-    return DKDV ? launch_dkdv<T, 128, 64, 64>(a, st)
-                : launch_dq<T, 128, 64, 64>(a, st);
-  return DKDV ? launch_dkdv<T, 256, 32, 32>(a, st)
-              : launch_dq<T, 256, 32, 32>(a, st);
+  if constexpr (DKDV) {
+    if (a.D <= 32) return launch_dkdv<T, 32, 64, 64>(a, st);
+    if (a.D <= 64) return launch_dkdv<T, 64, 64, 64>(a, st);
+    if (a.D <= 128) return launch_dkdv<T, 128, 64, 64>(a, st);
+    return launch_dkdv<T, 256, 32, 32>(a, st);
+  } else {
+    if (a.D <= 32) return launch_dq<T, 32, 64, 64>(a, st);
+    if (a.D <= 64) return launch_dq<T, 64, 64, 64>(a, st);
+    if (a.D <= 128) return launch_dq<T, 128, 64, 64>(a, st);
+    return launch_dq<T, 256, 32, 32>(a, st);
+  }
 }
 
 int check(const Args& a) {
@@ -495,6 +764,8 @@ extern "C" {
 // holds 16 element strides, (b, s, h, d) of q, k, v and dout in turn.
 // lse and delta are contiguous [B*H, S] f32; dk and dv are contiguous
 // [B, S, Hkv, D] and dq contiguous [B, S, H, D], in the input dtype.
+// bf16 dkdv inputs must satisfy tensor_core_operand
+// (cudaErrorInvalidValue otherwise).
 int dml_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int S, int H, int Hkv, int D,
@@ -504,7 +775,7 @@ int dml_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                            H, Hkv, D, strides, scale, causal);
   if (int err = check(a)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)dispatch<__nv_bfloat16, true>(a, st);
+  if (is_bf16) return (int)dispatch_dkdv_wgmma(a, st);
   return (int)dispatch<float, true>(a, st);
 }
 

@@ -8,24 +8,41 @@
 // dtype and a per-row logsumexp in f32.  Fully masked rows give O = 0 and
 // lse = -inf, as on the TPU.
 //
-// Design.  One thread block per (batch*head, q tile); a loop over kv tiles
-// takes the place of the TPU grid's sequential kv axis.  Each kv tile is
-// staged in shared memory as f32 (k transposed), scores and the P.V
-// product run as f32 FMAs from registers, and nothing of size S x S ever
-// reaches device memory.  Tensors are read through their element strides
-// ([B, S, H, D] in any layout, no transpose copy) and the ragged edges of
-// S and D are masked, so any S and any D in 1..256 work.
-//
 // Bound.  At the flagship shape (B=8, S=2048, H=8, D=64, bf16) the work is
 // 4*B*H*S^2*D = 68.7 GFLOP against ~68 MB of tensor traffic: the function
-// is bound by operations.  This first version uses CUDA-core FMAs, not the
-// tensor cores, so it runs far from that bound; wgmma/TMA tiles are the
-// next step.  Its measured time sits in PERF.md.
+// is bound by operations, so the tensor cores have to do the products.
+//
+// bf16: `flash_fwd_kernel_wgmma`.  One block per (batch*head, q tile of
+// 64 rows per warpgroup); a loop over kv tiles takes the place of the TPU
+// grid's sequential kv axis.  Q and a two-stage ring of K/V tiles sit in
+// shared memory as bf16 in the swizzled layout of hopper.cuh, filled by
+// cp.async (zero past S and D) so that tile t+1 loads while tile t
+// computes.  S = Q K^T is a wgmma from shared memory (both operands
+// K-major in the head dim).  The online softmax runs on the f32
+// accumulator fragment in registers: row max and sum across the four
+// threads of a row with shuffles, scale*log2(e) folded into one ex2
+// instruction, the mask applied only on the ragged and diagonal tiles.
+// P is split in registers into a bf16 high part and the bf16 rounding of
+// the rest, and O += P V is two register-A wgmmas with V read MN-major
+// from the same tile, so P enters the product to about 2^-16 (P rounded
+// to bf16 alone moved a whole training step past its limit, PERF.md; the
+// second product costs a quarter of the kernel's time).  The wrapper
+// hands in unit-stride, 16-byte-aligned rows with D a multiple of 8
+// (ops/flash_attention.py pads and copies what does not conform).
+//
+// f32: `flash_fwd_kernel`, CUDA-core FMAs from f32 tiles, so that f32
+// results stay at f32 precision (TF32 tensor cores would not).  Tensors
+// are read through their element strides and the ragged edges of S and D
+// are masked, so any layout, any S and any D in 1..256 work.
+//
+// Measured times sit in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -38,19 +55,12 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
 }
 
 // N consecutive floats from shared memory, in 16- or 8-byte loads.
@@ -278,9 +288,241 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// Tiles per head-dim bucket; ops/flash_attention.py::KERNEL_TILES mirrors
-// this table.  Untuned: the first correct choice that fits shared memory
-// (the largest, D <= 256, takes 181 KB).
+// ---- bf16 on the tensor cores -------------------------------------------
+
+template <int DMAX, int BK, int NWG>
+constexpr size_t wgmma_smem_bytes() {
+  // Q [BQ x DMAX] and STAGES stages of K and V [BK x DMAX], bf16, plus the
+  // slack that aligns the base to 1024 bytes.
+  return (size_t)2 * DMAX * (64 * NWG + 2 * hopper::STAGES * BK) + 1024;
+}
+
+// Scores of one kv tile (this thread's fragment, see to_a_fragments) to
+// the log2 domain, with the causal and ragged-edge mask where MASK, and
+// their row maxima over this thread's columns.
+template <bool MASK, int BK>
+__device__ __forceinline__ void scale_scores(float (&s)[BK / 2], float sl2,
+                                             int k0, int col0, int row0,
+                                             int S, int causal,
+                                             float (&mx)[2]) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * sl2;
+      if (MASK) {
+        const int col = k0 + 8 * j + col0 + (e & 1);
+        if (col >= S || (causal && col > row0 + 8 * (e >> 1))) x = -INFINITY;
+      }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+}
+
+template <int DMAX, int BK, int NWG>
+__global__ void __launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)
+    flash_fwd_kernel_wgmma(const hopper::bf16* __restrict__ q,
+                           const hopper::bf16* __restrict__ k,
+                           const hopper::bf16* __restrict__ v,
+                           hopper::bf16* __restrict__ o,
+                           float* __restrict__ lse, int S, int H, int Hkv,
+                           int D, Strides qs, Strides ks, Strides vs,
+                           float scale, int causal) {
+  using namespace hopper;
+  constexpr int BQ = 64 * NWG;
+  constexpr int NT = 128 * NWG;
+  constexpr int NCH = DMAX < 128 ? DMAX : 128;  // O columns per P.V wgmma
+  constexpr uint32_t kQBytes = BQ * DMAX * 2;
+  constexpr uint32_t kKVBytes = BK * DMAX * 2;
+  static_assert(DMAX % 64 == 0 && BK % 16 == 0, "tiles");
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  auto sK = [&](int st) { return sQ + kQBytes + st * 2 * kKVBytes; };
+  auto sV = [&](int st) { return sK(st) + kKVBytes; };
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;  // row within the warp's 8-row half
+  const int c4 = tid % 4;        // column pair within an 8-column chunk
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
+  const int q0 = blockIdx.x * BQ;
+  const int row0 = q0 + 64 * wg + 16 * warp + g;  // and row0 + 8
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  auto load_kv = [&](int t) {
+    const int st = t % STAGES;
+    load_tile<DMAX, BK, NT>(sK(st), kb, ks.s, t * BK, S, D, tid);
+    load_tile<DMAX, BK, NT>(sV(st), vb, vs.s, t * BK, S, D, tid);
+  };
+
+  int n_kv = (S + BK - 1) / BK;
+  if (causal) {
+    // A kv tile is live iff it meets the causal triangle of this q tile.
+    n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
+  }
+
+  // The ring: Q with kv tile 0, then one commit group per kv tile.
+  load_tile<DMAX, BQ, NT>(sQ, qb, qs.s, q0, S, D, tid);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_kv) load_kv(t);
+    cp_async_commit();
+  }
+
+  float acc[DMAX / 2];
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};              // this thread's share of the sum
+  const float sl2 = scale * kLog2e;
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int st = t % STAGES;
+    if (t + STAGES - 1 < n_kv) load_kv(t + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile t (and Q) have landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T for this warpgroup's 64 rows.
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;  // within the 128-byte row
+      Wgmma<BK>::ss(s,
+                    desc_k_major(sQ + (kk / 4) * BQ * 128 + wg * 64 * 128 + col),
+                    desc_k_major(sK(st) + (kk / 4) * BK * 128 + col), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // Online softmax on the fragment: rows row0 + 8*(e/2), columns
+    // k0 + 8j + 2*c4 + e%2.  Only the ragged last tile and tiles that
+    // cross this warpgroup's causal diagonal need the mask.
+    const int k0 = t * BK;
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (k0 + BK > S || (causal && k0 + BK - 1 > q0 + 64 * wg))
+      scale_scores<true, BK>(s, sl2, k0, 2 * c4, row0, S, causal, mx);
+    else
+      scale_scores<false, BK>(s, sl2, k0, 2 * c4, row0, S, causal, mx);
+    float m_safe[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      m_safe[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = fast_exp2(m[r] - m_safe[r]);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(s[4 * j + e] - m_safe[e >> 1]);
+        s[4 * j + e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
+
+    // O += P V with P split into a bf16 high and low part, two A operands.
+    uint32_t a_hi[BK / 16][4], a_lo[BK / 16][4];
+    to_a_fragments<BK>(s, a_hi);
+    low_fragments<BK>(s, a_hi, a_lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int nc = 0; nc < DMAX / NCH; ++nc) {
+        float(&o)[NCH / 2] =
+            *reinterpret_cast<float(*)[NCH / 2]>(&acc[nc * NCH / 2]);
+        const uint64_t dv = desc_mn_major(
+            sV(st) + kk * 2048 + nc * (NCH / 64) * BK * 128, BK * 128);
+        Wgmma<NCH>::rs(o, a_hi[kk], dv);
+        Wgmma<NCH>::rs(o, a_lo[kk], dv);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warpgroup is done with stage st
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (row >= S) continue;
+    bf16* orow = o + (((long long)b * S + row) * H + h) * (long long)D;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int d = 8 * j + 2 * c4;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+    }
+    if (c4 == 0)
+      lse[(long long)bh * S + row] =
+          m[r] == -INFINITY ? -INFINITY : (m[r] + log2f(denom)) * kLn2;
+  }
+}
+
+template <int DMAX, int BK, int NWG>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int B, int S, int H, int Hkv,
+                         int D, Strides qs, Strides ks, Strides vs,
+                         float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = wgmma_smem_bytes<DMAX, BK, NWG>();
+  auto kern = flash_fwd_kernel_wgmma<DMAX, BK, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + 64 * NWG - 1) / (64 * NWG), B * H);
+  kern<<<grid, 128 * NWG, smem, stream>>>(
+      static_cast<const hopper::bf16*>(q), static_cast<const hopper::bf16*>(k),
+      static_cast<const hopper::bf16*>(v), static_cast<hopper::bf16*>(o), lse,
+      S, H, Hkv, D, qs, ks, vs, scale, causal);
+  return cudaGetLastError();
+}
+
+// bf16 tiles per head-dim bucket, (block_q, block_k) = (64 * NWG, BK);
+// ops/flash_attention.py::KERNEL_TILES["bfloat16"] mirrors this table.
+// Shared memory: 49, 97 and 97 KB.  At D <= 64 the 64-column kv tile and
+// the launch bound keep a thread at 128 registers, so two blocks share an
+// SM and one block's softmax overlaps the other's products (PERF.md has
+// the tiles measured).  At D = 256 the 32-column tile keeps O (128
+// registers a thread) and S within 255.
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int S, int H, int Hkv,
+                           int D, Strides qs, Strides ks, Strides vs,
+                           float scale, int causal, cudaStream_t stream) {
+  if (D <= 64)
+    return launch_wgmma<64, 64, 2>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks,
+                                   vs, scale, causal, stream);
+  if (D <= 128)
+    return launch_wgmma<128, 64, 2>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks,
+                                    vs, scale, causal, stream);
+  return launch_wgmma<256, 32, 1>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks,
+                                  vs, scale, causal, stream);
+}
+
+// ---- f32 dispatch ---------------------------------------------------------
+
+// f32 tiles per head-dim bucket; ops/flash_attention.py::KERNEL_TILES
+// ["float32"] mirrors this table.  Untuned: the first correct choice that
+// fits shared memory (the largest, D <= 256, takes 181 KB).
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      float* lse, int B, int S, int H, int Hkv, int D,
@@ -305,7 +547,8 @@ extern "C" {
 
 // Returns a cudaError_t: 0 when the launch was accepted.  Strides are in
 // elements; o is a contiguous [B, S, H, D] tensor of the input dtype and
-// lse a contiguous [B*H, S] f32 tensor.
+// lse a contiguous [B*H, S] f32 tensor.  bf16 inputs must satisfy
+// tensor_core_operand (cudaErrorInvalidValue otherwise).
 int dml_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   float* lse, int B, int S, int H, int Hkv, int D,
                   long long qsb, long long qss, long long qsh, long long qsd,
@@ -319,9 +562,14 @@ int dml_flash_fwd(const void* q, const void* k, const void* v, void* o,
   const Strides ks{ksb, kss, ksh, ksd};
   const Strides vs{vsb, vss, vsh, vsd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, lse, B, S, H, Hkv, D, qs,
-                                        ks, vs, scale, causal, st);
+  if (is_bf16) {
+    if (!hopper::tensor_core_operand(q, qs, D) ||
+        !hopper::tensor_core_operand(k, ks, D) ||
+        !hopper::tensor_core_operand(v, vs, D))
+      return (int)cudaErrorInvalidValue;
+    return (int)dispatch_wgmma(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks, vs,
+                               scale, causal, st);
+  }
   return (int)dispatch<float>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks, vs,
                               scale, causal, st);
 }

@@ -7,8 +7,9 @@ minutes per build, while a plain C interface builds in seconds and needs
 nothing beyond the CUDA toolkit.
 
 The library lands in ``_build/`` inside the package (listed in
-``.gitignore``) under a name keyed on a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one loads as it is.
+``.gitignore``) under a name keyed on a hash of the source, every header
+under ``csrc/`` and the flags, so an edited source or header rebuilds and
+an unchanged one loads as it is.
 Importing this module compiles nothing; a build or load failure raises.
 """
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -63,6 +65,9 @@ def source_path(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -117,6 +122,49 @@ def build_log(name: str) -> str:
     memory and spills per kernel, from ``-Xptxas -v``)."""
     log = BUILD_DIR / f"{name}.log"
     return log.read_text() if log.exists() else ""
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_kernel_wgmma<64,128,2>`` from the mangled name of a
+    kernel template instance (its type argument as ``f32``/``bf16``)."""
+    m = re.search(r"\d+(flash_[a-z_0-9]+?)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    args = m.group(2)
+    kind = ["f32"] if args.startswith("f") else (
+        ["bf16"] if args.startswith("13__nv_bfloat16") else [])
+    return f"{m.group(1)}<{','.join(kind + re.findall(r'Li(-?\d+)E', args))}>"
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "HMMA")) -> Optional[dict]:
+    """Per kernel function of the built ``csrc/<name>.cu``, how many SASS
+    instructions start with each of ``opcodes`` (the tensor-core ones by
+    default), from ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run(
+        [tool, "-sass", str(library_path(name))], check=True,
+        capture_output=True, text=True,
+    ).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    function = None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            function = _kernel_name(line[len("Function : "):])
+            counts[function] = {op: 0 for op in opcodes}
+        elif function is not None and "*/" in line:
+            # "/*0a60*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], ... ;"
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            for op in opcodes:
+                if words and words[0].split(".")[0] == op:
+                    counts[function][op] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

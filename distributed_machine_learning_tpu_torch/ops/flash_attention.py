@@ -11,6 +11,12 @@ tensor takes :func:`flash_attention_reference` /
 :func:`flash_attention_backward_reference`, the plain PyTorch versions of
 the same functions.  Nothing falls back from one to the other.
 
+On the card the forward and the dK/dV kernel pick their code by dtype:
+bf16 runs on the tensor cores (``wgmma``), reading rows with 16-byte
+copies, so :func:`tensor_core_operands` first copies any input whose
+layout they cannot read; f32 runs on the CUDA cores, through strides, at
+f32 precision.  The dQ kernel runs on the CUDA cores in both dtypes.
+
 Shapes follow the JAX package: q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]``
 with ``H % Hkv == 0`` (grouped-query attention; kv is never repeated),
 O ``[B, S, H, D]`` in q's dtype, lse ``[B*H, 1, S]`` in f32; dK and dV come
@@ -29,14 +35,28 @@ import torch
 KERNEL_NAME = "flash_fwd"
 BACKWARD_SOURCE = "flash_bwd"
 
-# (block_q, block_k) per head-dim bucket, as compiled in csrc/flash_fwd.cu
-# and csrc/flash_bwd.cu.  Untuned: the first tiles that are right and fit
-# Hopper's shared memory.  The TPU package's VMEM-derived caps
-# (_default_blocks there, forward and backward) do not apply.
-KERNEL_TILES = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
-                (256, (32, 64)))
-BACKWARD_TILES = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
-                  (256, (32, 32)))
+# (head-dim bucket, (block_q, block_k)) per kernel and dtype, as compiled
+# in csrc/flash_fwd.cu and csrc/flash_bwd.cu.  bf16 is the tensor-core
+# code (block_q = 64 rows per warpgroup; the dK/dV kernel's block_k is
+# the kv rows one block owns); f32, and dQ in both dtypes, the CUDA-core
+# code.  Untuned beyond fitting Hopper's registers and shared memory.  The
+# TPU package's VMEM-derived caps (_default_blocks there) do not apply.
+_CUDA_CORE_FORWARD = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
+                      (256, (32, 64)))
+_CUDA_CORE_BACKWARD = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
+                       (256, (32, 32)))
+KERNEL_TILES = {
+    "float32": _CUDA_CORE_FORWARD,
+    "bfloat16": ((64, (128, 64)), (128, (128, 64)), (256, (64, 32))),
+}
+BACKWARD_TILES = {
+    "flash_bwd_dkdv": {
+        "float32": _CUDA_CORE_BACKWARD,
+        "bfloat16": ((64, (64, 128)), (128, (64, 64)), (256, (32, 64))),
+    },
+    "flash_bwd_dq": {"float32": _CUDA_CORE_BACKWARD,
+                     "bfloat16": _CUDA_CORE_BACKWARD},
+}
 MAX_HEAD_DIM = 256
 
 
@@ -69,24 +89,32 @@ dq_launches = LaunchCounter("flash_bwd_dq")
 
 
 def _default_blocks(S: int, D: int, block_q=None, block_k=None,
-                    backward: bool = False):
-    """The kernel's fixed (block_q, block_k) for head dim ``D``.
+                    backward: bool = False, dtype=torch.float32):
+    """The kernels' fixed (block_q, block_k) for head dim ``D`` and
+    ``dtype``: the forward's tile, or with ``backward`` a dict of each
+    backward kernel's tile.
 
-    The tile is compiled into the kernel, so an explicit block size must
-    name it; any other value raises instead of being silently ignored."""
+    The tiles are compiled into the kernels, so an explicit block size
+    must name the tile of every kernel that will run; any other value
+    raises instead of being silently ignored."""
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} outside the kernel's 1..{MAX_HEAD_DIM}")
-    table, source = ((BACKWARD_TILES, BACKWARD_SOURCE) if backward
-                     else (KERNEL_TILES, KERNEL_NAME))
-    tile = next(t for dmax, t in table if D <= dmax)
-    for name, want, have in (("block_q", block_q, tile[0]),
-                             ("block_k", block_k, tile[1])):
-        if want is not None and int(want) != have:
-            raise ValueError(
-                f"{name}={want}: the CUDA {source} kernels are compiled for "
-                f"tiles {tile} at head_dim {D}"
-            )
-    return tile
+    key = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    tables = ({name: t[key] for name, t in BACKWARD_TILES.items()}
+              if backward else {KERNEL_NAME: KERNEL_TILES[key]})
+    tiles = {name: next(t for dmax, t in table if D <= dmax)
+             for name, table in tables.items()}
+    source, compiled = ((BACKWARD_SOURCE, tiles) if backward
+                        else (KERNEL_NAME, tiles[KERNEL_NAME]))
+    for tile in tiles.values():
+        for name, want, have in (("block_q", block_q, tile[0]),
+                                 ("block_k", block_k, tile[1])):
+            if want is not None and int(want) != have:
+                raise ValueError(
+                    f"{name}={want}: the CUDA {source} kernels are compiled "
+                    f"for tiles {compiled} at head_dim {D} in {key}"
+                )
+    return compiled
 
 
 def _check_shapes(q, k, v):
@@ -160,6 +188,43 @@ def _check_kernel_inputs(q, k, v):
     return B, S, H, Hkv, D
 
 
+def _conforms(t: torch.Tensor) -> bool:
+    """Whether the bf16 tensor-core kernels read ``t`` ([..., D]) in
+    place: they copy each row with 16-byte loads, so D must be a multiple
+    of 8 with unit stride, every other stride a multiple of 8 elements and
+    the base 16-byte aligned."""
+    return (t.shape[-1] % 8 == 0 and t.stride(-1) == 1
+            and all(st % 8 == 0 for st in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def tensor_core_operands(*tensors: torch.Tensor):
+    """``tensors`` (all [..., D]) as the bf16 tensor-core kernels read
+    them.  Each one that does not conform (:func:`_conforms`: a layout with
+    D not innermost, autograd's stride-0 dO, D not a multiple of 8, an
+    unaligned base) becomes one contiguous copy, zero-padded in D to the
+    next multiple of 8; the others are passed through.  Zero columns add
+    nothing to Q K^T or dO V^T and come out as zero columns of O, dK and
+    dV, which the caller slices off; the caller keeps the original D's
+    scale."""
+    D = tensors[0].shape[-1]
+    d_pad = -(-D // 8) * 8
+    out = []
+    for t in tensors:
+        if d_pad == D and _conforms(t):
+            out.append(t)
+            continue
+        c = t.new_zeros(*t.shape[:-1], d_pad)
+        c[..., :D] = t
+        out.append(c)
+    return out
+
+
+def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
+    """``t`` cut back to head dim ``D`` (contiguous, as callers view it)."""
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def _raise_on_error(lib, err: int, name: str) -> None:
     if err != 0:
         lib.dml_cuda_error_string.restype = ctypes.c_char_p
@@ -171,10 +236,13 @@ def _raise_on_error(lib, err: int, name: str) -> None:
 def _launch(q, k, v, scale: float, causal: bool):
     """The CUDA kernel on ``q``'s device and current stream."""
     B, S, H, Hkv, D = _check_kernel_inputs(q, k, v)
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, 1, S), dtype=torch.float32, device=q.device)
     if B * S * H * D == 0:
-        return out, lse
+        return torch.empty((B, S, H, D), dtype=q.dtype, device=q.device), lse
+    if q.dtype == torch.bfloat16:
+        q, k, v = tensor_core_operands(q, k, v)
+    d_run = q.shape[-1]
+    out = torch.empty((B, S, H, d_run), dtype=q.dtype, device=q.device)
     from distributed_machine_learning_tpu_torch.ops import _build
 
     lib = _build.load(KERNEL_NAME)
@@ -189,14 +257,14 @@ def _launch(q, k, v, scale: float, causal: bool):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, H, Hkv, D,
+            lse.data_ptr(), B, S, H, Hkv, d_run,
             *q.stride(), *k.stride(), *v.stride(),
             float(scale), int(bool(causal)),
             int(q.dtype == torch.bfloat16), stream,
         )
     _raise_on_error(lib, err, KERNEL_NAME)
     launches.add()
-    return out, lse
+    return _unpad(out, D), lse
 
 
 def flash_forward(
@@ -209,7 +277,7 @@ def flash_forward(
 
     CUDA tensors run the kernel; CPU tensors run the plain version."""
     s = (q.shape[-1] ** -0.5) if scale is None else float(scale)
-    _default_blocks(q.shape[1], q.shape[-1], block_q, block_k)
+    _default_blocks(q.shape[1], q.shape[-1], block_q, block_k, dtype=q.dtype)
     if q.device.type == "cuda":
         out, lse = _launch(q, k, v, s, causal)
     elif q.device.type == "cpu":
@@ -302,16 +370,20 @@ _BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch_bwd(fn_name: str, counter: LaunchCounter, q, k, v, lse, do,
-                delta, scale: float, causal: bool, outs):
-    """One backward kernel on ``q``'s device and current stream, writing
-    into ``outs`` (allocated by the caller)."""
-    B, S, H, Hkv, D = _check_kernel_inputs(q, k, v)
+def _check_dout(q, do) -> None:
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(
             f"dout {tuple(do.shape)}/{do.dtype} must match q "
             f"{tuple(q.shape)}/{q.dtype} on one device"
         )
+
+
+def _launch_bwd(fn_name: str, counter: LaunchCounter, q, k, v, lse, do,
+                delta, scale: float, causal: bool, outs):
+    """One backward kernel on ``q``'s device and current stream, writing
+    into ``outs`` (allocated by the caller)."""
+    B, S, H, Hkv, D = _check_kernel_inputs(q, k, v)
+    _check_dout(q, do)
     if B * S * H * D == 0:
         return
     # [B*H, S] f32 rows, contiguous, as the kernels index them.
@@ -351,13 +423,18 @@ def flash_bwd_dkdv(q, k, v, lse, do, delta, scale: float,
     the plain version."""
     if _on_device(q) == "cpu":
         return flash_bwd_dkdv_reference(q, k, v, lse, do, delta, scale, causal)
+    _check_kernel_inputs(q, k, v)
+    _check_dout(q, do)
+    D = k.shape[-1]
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tensor_core_operands(q, k, v, do)
     # Contiguous, as the kernel writes them (empty_like would keep a
     # permuted layout of k).
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("dml_flash_bwd_dkdv", dkdv_launches, q, k, v, lse, do, delta,
                 scale, causal, (dk, dv))
-    return dk, dv
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 def flash_bwd_dq(q, k, v, lse, do, delta, scale: float,
@@ -393,7 +470,8 @@ def flash_backward(
         _on_device(q)
         delta = backward_delta(out, do)
     s = (q.shape[-1] ** -0.5) if scale is None else float(scale)
-    _default_blocks(q.shape[1], q.shape[-1], block_q, block_k, backward=True)
+    _default_blocks(q.shape[1], q.shape[-1], block_q, block_k, backward=True,
+                    dtype=q.dtype)
     dk, dv = flash_bwd_dkdv(q, k, v, lse, do, delta, s, causal)
     dq = flash_bwd_dq(q, k, v, lse, do, delta, s, causal)
     return dq, dk, dv
@@ -406,7 +484,7 @@ class _FlashAttention(torch.autograd.Function):
             # Refuse a tile the backward is not compiled for now, not after
             # the forward has run.
             _default_blocks(q.shape[1], q.shape[-1], block_q, block_k,
-                            backward=True)
+                            backward=True, dtype=q.dtype)
         out, lse = flash_forward(q, k, v, scale, causal, block_q, block_k,
                                  with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -96,6 +96,72 @@ def test_backward_kernels_match_plain_version(card, dtype, rtol, causal, H,
         assert _rel_err(got, want) <= rtol, name
 
 
+# bf16 runs the tensor-core (wgmma) forward and dK/dV kernels: ragged S,
+# every head-dim bucket, grouped kv and causal masking.  Tolerances as
+# above (KERNEL_TOL in chip_smoke.py): the forward carries P as two bf16
+# parts and the dK/dV kernel rounds P^T and dS^T to bf16, well within one
+# bf16 ulp of the largest entry.
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("H,Hkv,D,S", [(8, 8, 16, 130), (8, 1, 40, 130),
+                                       (8, 8, 64, 130), (8, 1, 64, 1000),
+                                       (4, 2, 128, 130), (2, 2, 256, 130)])
+def test_bf16_tensor_core_kernels_match_plain_version(card, causal, H, Hkv,
+                                                      D, S):
+    gen = torch.Generator().manual_seed(S + D + 2)
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(2, S, h, D, generator=gen).to(card, bf)
+                   for h in (H, Hkv, Hkv, H))
+    out, lse = fa.flash_forward(q, k, v, 0.3, causal, with_lse=True)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, 0.3, causal)
+    delta = fa.backward_delta(out, do)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, lse, do, delta, 0.3, causal)
+    ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(q, k, v, lse, do, delta,
+                                                 0.3, causal)
+    dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, lse, do, delta, 0.3, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dk.dtype == dv.dtype == bf
+    assert _rel_err(out, ref_out) <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert _rel_err(dk, ref_dk) <= 2e-2 and _rel_err(dv, ref_dv) <= 2e-2
+    # No atomics: the same bits on a rerun.
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_bf16_kernels_take_conforming_copies(card):
+    """D = 33 and q/k/v stored [B, H, D, S] (D not innermost), with the
+    stride-0 dO that .sum().backward() hands in: the wrapper copies and
+    pads them for the tensor-core kernels and slices the results back."""
+    gen = torch.Generator().manual_seed(11)
+    leaf = torch.randn(3, 2, 4, 33, 150, generator=gen).to(card,
+                                                           torch.bfloat16)
+    split = lambda t: (x.permute(0, 3, 1, 2) for x in t.unbind(0))  # noqa: E731
+    qkv = leaf.clone().requires_grad_()
+    q, k, v = split(qkv)
+    assert q.stride(-1) != 1
+    fa.flash_attention(q, k, v, causal=True).sum().backward()
+    ref_qkv = leaf.float().clone().requires_grad_()
+    rq, rk, rv = split(ref_qkv)
+    fa.flash_attention_reference(rq, rk, rv, 33 ** -0.5, True)[0].sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert qkv.grad.shape == leaf.shape
+    assert _rel_err(qkv.grad, ref_qkv.grad) <= 2e-2
+
+
+def test_tensor_core_kernels_run_hgmma(card):
+    """The bf16 kernels compile to Hopper's warpgroup MMA (HGMMA in the
+    SASS), where the toolkit has cuobjdump to show it."""
+    from distributed_machine_learning_tpu_torch.ops import _build
+
+    fa.build_kernels()
+    for name in (fa.KERNEL_NAME, fa.BACKWARD_SOURCE):
+        counts = _build.sass_counts(name)
+        if counts is None:
+            pytest.skip("the toolkit has no cuobjdump")
+        wgmma = {k: c for k, c in counts.items() if "_wgmma" in k}
+        assert wgmma and all(c["HGMMA"] > 0 for c in wgmma.values())
+
+
 @pytest.mark.parametrize("layout", ["fused_qkv", "heads_first"])
 def test_autograd_runs_the_backward_kernels(card, layout):
     """loss.backward() through flash_attention on the card: a stride-0

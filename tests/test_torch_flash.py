@@ -122,14 +122,37 @@ def test_backward_raises_instead_of_a_silent_plain_gradient():
 
 
 def test_fixed_kernel_tile_and_shape_checks():
+    bf16 = torch.bfloat16
+    # f32: the CUDA-core tiles.
     assert port._default_blocks(2048, 64) == (64, 64)
     assert port._default_blocks(2048, 256) == (32, 64)
     assert port._default_blocks(96, 16, block_q=64) == (64, 64)
-    assert port._default_blocks(2048, 256, backward=True) == (32, 32)
+    assert port._default_blocks(2048, 256, backward=True) == {
+        "flash_bwd_dkdv": (32, 32), "flash_bwd_dq": (32, 32)}
     with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
         port._default_blocks(2048, 256, block_k=64, backward=True)
     with pytest.raises(ValueError, match="compiled for tiles"):
         port._default_blocks(2048, 64, block_q=128)
+    # bf16: the tensor-core tiles (64 q rows per warpgroup) of the forward
+    # and dK/dV kernels; dQ keeps the CUDA-core tiles.
+    assert port._default_blocks(2048, 64, dtype=bf16) == (128, 64)
+    assert port._default_blocks(2048, 40, block_q=128, dtype=bf16) == (128,
+                                                                      64)
+    assert port._default_blocks(2048, 128, dtype=bf16) == (128, 64)
+    assert port._default_blocks(2048, 256, dtype=bf16) == (64, 32)
+    assert port._default_blocks(2048, 64, backward=True, dtype=bf16) == {
+        "flash_bwd_dkdv": (64, 128), "flash_bwd_dq": (64, 64)}
+    assert port._default_blocks(2048, 256, backward=True, dtype=bf16) == {
+        "flash_bwd_dkdv": (32, 64), "flash_bwd_dq": (32, 32)}
+    assert port._default_blocks(2048, 64, block_q=64, backward=True,
+                                dtype=bf16)["flash_bwd_dkdv"] == (64, 128)
+    with pytest.raises(ValueError, match="compiled for tiles"):
+        port._default_blocks(2048, 64, block_q=64, dtype=bf16)
+    # No block_k serves both backward kernels at bf16, D <= 64.
+    for block_k in (64, 128):
+        with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
+            port._default_blocks(2048, 64, block_k=block_k, backward=True,
+                                 dtype=bf16)
     with pytest.raises(ValueError, match="head_dim"):
         port._default_blocks(64, 512)
     q, k, v = (torch.from_numpy(a) for a in _inputs(5, H=3, Hkv=2))
@@ -140,3 +163,56 @@ def test_fixed_kernel_tile_and_shape_checks():
         port.flash_forward(q, k[:, :-1], v[:, :-1])
     with pytest.raises(ValueError, match="cuda or cpu"):
         port.flash_forward(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def _stored_transposed(t):
+    """The values of ``t`` [B, S, H, D] stored as [B, H, D, S]."""
+    return t.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("case", ["d33", "stride0_dout", "transposed_q",
+                                  "unaligned_k"])
+def test_tensor_core_operands_pad_and_copy_without_changing_results(case):
+    """The bf16 kernels' conforming copy: inputs they cannot read in place
+    (D not a multiple of 8, a stride-0 dO, D not innermost, an unaligned
+    base) become contiguous copies zero-padded in D to a multiple of 8;
+    the plain forward and backward on the copies, at the original D's
+    scale, equal the originals' once sliced back."""
+    D = 33 if case == "d33" else 16
+    q, k, v = (torch.from_numpy(a) for a in _inputs(6, H=4, Hkv=2, D=D))
+    do = torch.from_numpy(
+        np.random.default_rng(7).normal(size=q.shape).astype(np.float32))
+    if case == "stride0_dout":
+        do = torch.tensor(0.7).expand(q.shape)  # what .sum().backward() gives
+    elif case == "transposed_q":
+        q = _stored_transposed(q)
+    elif case == "unaligned_k":
+        k = torch.cat([torch.zeros(1), k.flatten()])[1:].view(k.shape)
+    originals = (q, k, v, do)
+    copies = port.tensor_core_operands(*originals)
+    d_pad = -(-D // 8) * 8
+    for t, c in zip(originals, copies):
+        assert port._conforms(c) and c.shape[-1] == d_pad
+        assert torch.equal(c[..., :D], t)
+        assert not c[..., D:].any()
+        # Only what does not conform is copied.
+        assert (c is t) == (d_pad == D and port._conforms(t))
+    assert sum(c is not t for t, c in zip(originals, copies)) == (
+        4 if case == "d33" else 1)
+
+    qc, kc, vc, doc = copies
+    scale = D ** -0.5
+    out, lse = port.flash_attention_reference(q, k, v, scale, True)
+    out_c, lse_c = port.flash_attention_reference(qc, kc, vc, scale, True)
+    torch.testing.assert_close(port._unpad(out_c, D), out, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse_c, lse, rtol=0, atol=1e-6)
+    delta = port.backward_delta(out, do)
+    delta_c = port.backward_delta(out_c, doc)
+    torch.testing.assert_close(delta_c, delta, rtol=0, atol=1e-6)
+    grads = port.flash_attention_backward_reference(q, k, v, lse, do, delta,
+                                                    scale, True)
+    grads_c = port.flash_attention_backward_reference(qc, kc, vc, lse_c, doc,
+                                                      delta_c, scale, True)
+    for g, gc in zip(grads, grads_c):
+        assert not gc[..., D:].any()
+        torch.testing.assert_close(port._unpad(gc, D), g, rtol=0, atol=1e-6)
