@@ -7,7 +7,7 @@ tile and precision choice costs, and how it moves a training step.
 The sources in ``distributed_machine_learning_tpu_torch/csrc/`` are the
 baseline ("shipped").  Each variant is the same sources with a few text
 edits (a tile, a launch bound, the ring depth, the forward's split of P,
-the always-on mask and ``exp2f``), built with nvcc
+the dQ kernel's split of dS, the always-on mask and ``exp2f``), built with nvcc
 into ``_build/study/`` and swapped in under the port's wrappers.  Every
 variant is held against the plain PyTorch version at KERNEL_TOL, timed in
 turns with the others at the flagship shape (B=8, S=2048, H=8, D=64,
@@ -42,6 +42,14 @@ _STAGES3 = {"hopper.cuh": [("constexpr int STAGES = 2;",
                             "constexpr int STAGES = 3;")]}
 
 
+_DQ_ONE_BLOCK = ("__launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)\n"
+                 "    flash_bwd_dq_kernel_wgmma",
+                 "__launch_bounds__(128 * NWG, 1)\n"
+                 "    flash_bwd_dq_kernel_wgmma")
+_DQ_BK64 = ("return launch_dq_wgmma<64, 32, 2>(a, st);",
+            "return launch_dq_wgmma<64, 64, 2>(a, st);")
+
+
 def _fwd_tile(bk: int):
     return (_FWD_D64, f"return launch_wgmma<64, {bk}, 2>(")
 
@@ -71,6 +79,23 @@ VARIANTS = {
         ("return launch_dkdv_wgmma<64, 64, 1>(a, st);",
          "return launch_dkdv_wgmma<64, 32, 1>(a, st);")]}),
     "dkdv_stages3": ("flash_bwd", _STAGES3),
+    "dq_shipped": ("flash_bwd", {}),
+    # dS carried into dS K as a bf16 high and low part, as the forward
+    # carries P: two register-A wgmmas per kv tile.
+    "dq_ds_split": ("flash_bwd", {"flash_bwd.cu": [
+        ("    uint32_t ads[BK / 16][4];\n    to_a_fragments<BK>(dp, ads);\n",
+         "    uint32_t ads[BK / 16][4], ads_lo[BK / 16][4];\n"
+         "    to_a_fragments<BK>(dp, ads);\n"
+         "    low_fragments<BK>(dp, ads, ads_lo);\n"),
+        ("        Wgmma<NCH>::rs(o, ads[kk], dk);\n",
+         "        Wgmma<NCH>::rs(o, ads[kk], dk);\n"
+         "        Wgmma<NCH>::rs(o, ads_lo[kk], dk);\n")]}),
+    # The first design: one block an SM and a 64-column kv tile at D <= 64
+    # (159 registers); and two blocks with the 64-column tile (it spills
+    # under the 128-register bound).
+    "dq_one_block_bk64": ("flash_bwd", {"flash_bwd.cu": [
+        _DQ_ONE_BLOCK, _DQ_BK64]}),
+    "dq_two_blocks_bk64": ("flash_bwd", {"flash_bwd.cu": [_DQ_BK64]}),
 }
 
 
@@ -141,6 +166,11 @@ def _check(name: str) -> float:
             got = fa.flash_forward(q, k, v, s, causal)
             want = fa.flash_attention_reference(q, k, v, s, causal)[0]
             errs = [cs._rel_err(got, want)]
+        elif name.startswith("dq"):
+            got = fa.flash_bwd_dq(q, k, v, lse, do, delta, s, causal)
+            want = fa.flash_bwd_dq_reference(q, k, v, lse, do, delta, s,
+                                             causal)
+            errs = [cs._rel_err(got, want)]
         else:
             got = fa.flash_bwd_dkdv(q, k, v, lse, do, delta, s, causal)
             want = fa.flash_bwd_dkdv_reference(q, k, v, lse, do, delta, s,
@@ -154,8 +184,8 @@ def _check(name: str) -> float:
 
 
 def _timings(libs: dict) -> dict:
-    """Each variant's ms at the flagship shape, in turns (forward
-    variants with each other, dK/dV variants with each other)."""
+    """Each variant's ms at the flagship shape, in turns (forward,
+    dK/dV and dQ variants each with their own kind)."""
     import torch
 
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
@@ -164,17 +194,19 @@ def _timings(libs: dict) -> dict:
     q, k, v, do, lse, delta = cs._bwd_inputs(B, S, H, H, D, torch.bfloat16,
                                              None, False, 4321)
     calls = {
-        "flash_fwd": lambda: fa.flash_forward(q, k, v),
-        "flash_bwd": lambda: fa.flash_bwd_dkdv(q, k, v, lse, do, delta,
-                                               D ** -0.5, False),
+        "fwd": lambda: fa.flash_forward(q, k, v),
+        "dkdv": lambda: fa.flash_bwd_dkdv(q, k, v, lse, do, delta,
+                                          D ** -0.5, False),
+        "dq": lambda: fa.flash_bwd_dq(q, k, v, lse, do, delta, D ** -0.5,
+                                      False),
     }
     times = {name: [] for name in libs}
     names = list(libs)
     for order in (names, names[::-1], names):
         for name in order:
-            source = VARIANTS[name][0]
-            with Swapped(source, libs[name]):
-                times[name].append(cs.cuda_ms(calls[source], iters=30))
+            with Swapped(VARIANTS[name][0], libs[name]):
+                times[name].append(cs.cuda_ms(calls[name.split("_")[0]],
+                                              iters=30))
     return times
 
 
@@ -203,7 +235,8 @@ def _rounded_forward(q, k, v, scale, causal):
 
 def _rounded_backward(q, k, v, lse, do, delta, scale, causal):
     """The plain backward with P^T and dS^T rounded to bf16 before the
-    dV and dK products, where the dK/dV kernel rounds them."""
+    dV and dK products, and dS before the dQ product, where the dK/dV and
+    dQ kernels round them."""
     import torch
 
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
@@ -213,7 +246,7 @@ def _rounded_backward(q, k, v, lse, do, delta, scale, causal):
     r = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
     dv = torch.einsum("bhgqk,bqhgd->bkhd", r(p), dof)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", r(ds), qf)
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(q.shape)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", r(ds), kf).reshape(q.shape)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

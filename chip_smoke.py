@@ -10,7 +10,8 @@ nonzero; nothing is caught and passed over):
    from the sources in the checkout (one nvcc per source, all at once),
    with ptxas's registers and spills per kernel and each library's
    tensor-core instructions (HGMMA/HMMA in ``cuobjdump -sass``) per
-   kernel; a bf16 tensor-core kernel without HGMMA fails the phase.
+   kernel; a bf16 tensor-core kernel without HGMMA, or one that spills at
+   a head dim up to 128, fails the phase.
 2. kernel — the forward kernel held against its plain PyTorch version on
    the card over a grid of dtypes, causal flags, grouped-kv layouts, head
    dims (D = 33 among them), sequence lengths, scales and a transposed
@@ -18,8 +19,11 @@ nonzero; nothing is caught and passed over):
    in bf16); then timed at the flagship shape beside its plain version
    and the PyTorch library call that computes the same function.
 3. kernel_bwd — the same for the two backward kernels (dK/dV and dQ),
-   timed at the flagship training shape, where the bf16 dK/dV kernel is
-   also rerun and must give the same bits.
+   timed at the flagship training shape, where both bf16 kernels are
+   also rerun and must give the same bits; then B*H = 65544 through all
+   three kernels in f32 and bf16 (the grid's batch x heads axis past
+   65535).  kernel_f32 — the f32 instantiations of all three kernels
+   held against their plain versions and timed at the flagship shape.
 4. serve  — the bench flagship transformer (d_model 512, 8 heads, 4
    layers, seq 2048, bf16, flash attention) written as a bundle with
    seeded weights, loaded back and served over HTTP by the port's
@@ -34,7 +38,10 @@ nonzero; nothing is caught and passed over):
    against the same step through the plain forward and backward (f32 and
    bf16), each bf16 attention call of that step held against its plain
    version on the same inputs, and planted kernel faults shown to fail
-   both checks; one step's device time split by kernel (torch.profiler).
+   both checks; one step's device time split by kernel (torch.profiler,
+   four profiles behind a discarded warm-up step each, two of which must
+   agree on every kernel's count) and its device idle share (CUDA
+   events).
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -44,6 +51,7 @@ script imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -125,6 +133,14 @@ def phase_build():
         if idle:
             raise AssertionError(f"build: no HGMMA in the tensor-core "
                                  f"kernels {idle}")
+    # The tensor-core kernels keep everything in registers up to D = 128
+    # (their first template argument is the head-dim bucket).
+    spilled = {k: r for n in names for k, r in ptxas[n].items()
+               if (m := re.search(r"_wgmma<(\d+),", k))
+               and int(m.group(1)) <= 128 and r.get("spill_bytes") != 0}
+    if spilled:
+        raise AssertionError(f"build: tensor-core kernels spill at D <= 128: "
+                             f"{spilled}")
     emit("build", card=smi_line(), kernels=names, seconds=seconds,
          ptxas=ptxas, tensor_cores=tensor_cores,
          tensor_cores_note=None if all(tensor_cores.values()) else
@@ -132,9 +148,8 @@ def phase_build():
 
 
 def _ptxas_by_kernel(log: str) -> dict:
-    """{kernel: "R registers, S spill bytes"} from nvcc's -Xptxas -v."""
-    import re
-
+    """{kernel: {"registers": R, "spill_bytes": S}} from nvcc's
+    -Xptxas -v."""
     from distributed_machine_learning_tpu_torch.ops import _build
 
     out, kernel = {}, None
@@ -151,8 +166,7 @@ def _ptxas_by_kernel(log: str) -> dict:
                           r"loads", line)
             if m:
                 out[kernel]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-    return {k: f"{v.get('registers')} registers, {v.get('spill_bytes')} "
-               f"spill bytes" for k, v in out.items()}
+    return out
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -201,6 +215,15 @@ def _compare(q, k, v, scale, causal):
     return err_o, _rel_err(out, ref_out), err_l
 
 
+def _bound(flops: float, nbytes: float, dtype: str) -> dict:
+    """The least time the card could take: the larger of the operations
+    at the peak rate for ``dtype`` and the bytes at the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def _rel_err(got, want) -> float:
     """max |err| over max |want|.  Outputs and gradients shrink as S grows
     (at S = 2048 most gradient entries are a few hundredths), so a
@@ -216,10 +239,11 @@ def _rel_err(got, want) -> float:
 # once, at most one bf16 ulp apart, at most 2**-7 = 7.8e-3 of the largest
 # entry.  The tensor-core kernels round where the plain versions do not:
 # the forward carries P into P V as two bf16 parts (high and the rounded
-# rest, P to about 2**-16), and the dK/dV kernel rounds P^T and dS^T to
-# bf16 before P^T dO and dS^T Q (relative 2**-9 per entry, averaging out
-# over the S terms of each sum).  dQ runs on the CUDA cores in f32.  2e-2
-# leaves room for both, and a kernel off by 3 % everywhere fails.
+# rest, P to about 2**-16), the dK/dV kernel rounds P^T and dS^T to bf16
+# before P^T dO and dS^T Q, and the dQ kernel rounds dS to bf16 before
+# dS K (relative 2**-9 per entry, averaging out over the S terms of each
+# sum).  2e-2 leaves room for these, and a kernel off by 3 % everywhere
+# fails.
 KERNEL_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
@@ -286,14 +310,11 @@ def phase_kernel():
     flops = 4.0 * B * H * S * S * D
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     nbytes += B * H * S * 4  # lse
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     timing = {
         "shape": [B, S, H, D], "dtype": "bfloat16", "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "max_abs_err": err_o, "gflop": flops / 1e9,
+        **_bound(flops, nbytes, "bfloat16"), "max_abs_err": err_o,
+        "gflop": flops / 1e9,
         "tflops": flops / (kernel_ms * 1e-3) / 1e12,
     }
     emit("kernel", card=torch.cuda.get_device_name(0), cases=len(cases),
@@ -341,8 +362,8 @@ def phase_kernel_bwd():
         for S in (96, 130, 2048)
         for scale in (None, 0.37)
     ] + [
-        # q, k, v and dO stored [B, H, D, S]: the bf16 dK/dV kernel takes
-        # the wrapper's conforming copy, the dQ kernel reads the strides.
+        # q, k, v and dO stored [B, H, D, S]: the bf16 kernels take the
+        # wrapper's conforming copy, the f32 ones read the strides.
         (dtype, causal, H, Hkv, D, S, None, "transposed")
         for dtype in (torch.float32, torch.bfloat16)
         for causal in (False, True)
@@ -385,7 +406,11 @@ def phase_kernel_bwd():
                 (dv2.float() - dv.float()).abs().max().item())
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"flash_bwd_dkdv: a rerun differs by {rerun}")
-    del dk2, dv2
+    dq2 = fa.flash_bwd_dq(*args)
+    rerun_dq = (dq2.float() - dq.float()).abs().max().item()
+    if not torch.equal(dq, dq2):
+        raise AssertionError(f"flash_bwd_dq: a rerun differs by {rerun_dq}")
+    del dk2, dv2, dq2
     ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(*args)
     ref_dq = fa.flash_bwd_dq_reference(*args)
     torch.cuda.synchronize()
@@ -425,21 +450,129 @@ def phase_kernel_bwd():
     timing = {}
     for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
         ms = cuda_ms(kernel[name], iters=10)
-        t_ops = flops[name] / PEAK_FLOPS["bfloat16"] * 1e3
-        t_bytes = nbytes[name] / PEAK_BYTES_PER_S * 1e3
         timing[name] = {
             "ms": ms,
             "plain_ms": cuda_ms(plain[name], iters=3, warmup=1),
             "library_ms": cuda_ms(library[name], iters=10),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **_bound(flops[name], nbytes[name], "bfloat16"),
             "max_abs_err": err[name], "gflop": flops[name] / 1e9,
             "tflops": flops[name] / (ms * 1e-3) / 1e12,
         }
+    del q, k, v, do, lse, delta, args, dq, dk, dv, qt, kt, vt, sdpa_out, dot
     emit("kernel_bwd", card=torch.cuda.get_device_name(0), cases=n,
          max_rel_err=worst, shape=[B, S, H, D], dtype="bfloat16",
          flagship_rel_err=flagship_rel, dkdv_rerun_max_abs_diff=rerun,
+         dq_rerun_max_abs_diff=rerun_dq, grid_past_65535=_grid_past_65535(),
          **timing)
+    return timing
+
+
+def _grid_past_65535() -> dict:
+    """B*H = 65544 (B = 8193, H = 8, Hkv = 4, S = 24, D = 16, causal)
+    through all three kernels in f32 and bf16, against the plain versions
+    at KERNEL_TOL: (batch, head) lies on the grid's x axis, past the 65535
+    that the y axis would allow.  Returns the readings by dtype."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, Hkv, D = 8193, 24, 8, 4, 16
+    readings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, k, v, do, lse, delta = _bwd_inputs(B, S, H, Hkv, D, dtype, None,
+                                              True, 65544)
+        s = D ** -0.5
+        counters = _reset_counters()
+        out = fa.flash_forward(q, k, v, s, True)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, lse, do, delta, s, True)
+        dq = fa.flash_bwd_dq(q, k, v, lse, do, delta, s, True)
+        launched = [c.count for c in counters]
+        ref_out = fa.flash_attention_reference(q, k, v, s, True)[0]
+        ref = fa.flash_attention_backward_reference(q, k, v, lse, do, delta,
+                                                    s, True)
+        torch.cuda.synchronize()
+        errs = {n: _rel_err(g, w) for n, g, w in zip(
+            ("out", "dq", "dk", "dv"), (out, dq, dk, dv), (ref_out, *ref))}
+        if launched != [1, 1, 1] or not max(errs.values()) <= KERNEL_TOL[name]:
+            raise AssertionError(
+                f"B*H = {B * H} ({name}): launches {launched}, rel err "
+                f"{errs} (tol {KERNEL_TOL[name]})")
+        readings[name] = errs
+        del q, k, v, do, lse, delta, out, dq, dk, dv, ref_out, ref
+    return {"shape": [B, S, H, Hkv, D], "batch_x_heads": B * H,
+            "max_rel_err": readings}
+
+
+def phase_kernel_f32():
+    """The f32 instantiations of the three kernels (CUDA-core FMAs) at the
+    flagship shape: held against their plain versions and timed beside
+    them and the library call, bound at the f32 CUDA-core peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = 8, FLAGSHIP["max_seq_length"], FLAGSHIP["num_heads"], 64
+    dtype, s = torch.float32, D ** -0.5
+    q, k, v, do, lse, delta = _bwd_inputs(B, S, H, H, D, dtype, None, False,
+                                          4322)
+    args = (q, k, v, lse, do, delta, s, False)
+    # (kernel outputs, plain outputs) per kernel.
+    pairs = {
+        "flash_fwd": ((fa.flash_forward(q, k, v),),
+                      fa.flash_attention_reference(q, k, v, s, False)[:1]),
+        "flash_bwd_dkdv": (fa.flash_bwd_dkdv(*args),
+                           fa.flash_bwd_dkdv_reference(*args)),
+        "flash_bwd_dq": ((fa.flash_bwd_dq(*args),),
+                         (fa.flash_bwd_dq_reference(*args),)),
+    }
+    torch.cuda.synchronize()
+    rel = {n: max(_rel_err(a, b) for a, b in zip(*p)) for n, p in pairs.items()}
+    if not max(rel.values()) <= KERNEL_TOL["float32"]:
+        raise AssertionError(f"f32 kernels at the flagship shape: rel err "
+                             f"{rel} (tol {KERNEL_TOL['float32']})")
+    abs_err = {n: max((a - b).abs().max().item() for a, b in zip(*p))
+               for n, p in pairs.items()}
+    del pairs
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_forward(q, k, v),
+                      lambda: fa.flash_attention_reference(q, k, v, s, False),
+                      lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+        "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(*args),
+                           lambda: fa.flash_bwd_dkdv_reference(*args),
+                           lambda: torch.autograd.grad(
+                               sdpa_out, (kt, vt), dot, retain_graph=True)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args),
+                         lambda: fa.flash_bwd_dq_reference(*args),
+                         lambda: torch.autograd.grad(
+                             sdpa_out, (qt,), dot, retain_graph=True)),
+    }
+    flops = {"flash_fwd": 4.0 * B * H * S * S * D,
+             "flash_bwd_dkdv": 8.0 * B * H * S * S * D,
+             "flash_bwd_dq": 6.0 * B * H * S * S * D}
+    tensor = q.numel() * q.element_size()
+    rows = B * H * S * 4
+    nbytes = {"flash_fwd": 4 * tensor + rows,  # q, k, v in; O, lse out
+              "flash_bwd_dkdv": 6 * tensor + 2 * rows,
+              "flash_bwd_dq": 5 * tensor + 2 * rows}
+    timing = {}
+    for name, (kernel, plain, library) in calls.items():
+        ms = cuda_ms(kernel, iters=5, warmup=1)
+        timing[name] = {
+            "ms": ms, "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+            "library_ms": cuda_ms(library, iters=5, warmup=1),
+            **_bound(flops[name], nbytes[name], "float32"),
+            "max_abs_err": abs_err[name], "max_rel_err": rel[name],
+            "gflop": flops[name] / 1e9,
+            "tflops": flops[name] / (ms * 1e-3) / 1e12,
+        }
+    emit("kernel_f32", card=torch.cuda.get_device_name(0),
+         shape=[B, S, H, D], dtype="float32", **timing)
     return timing
 
 
@@ -832,9 +965,19 @@ def _grad_check(train) -> dict:
 
 def _profile_step(train) -> dict:
     """One flagship training step (forward, backward, adam update) split
-    by device kernel (torch.profiler; kernel times are device times)."""
+    by device kernel (torch.profiler; kernel times are device times).
+
+    The step is profiled four times, each profile tracing one warm-up
+    step that it discards before the step it keeps (an event at the edge
+    of a window can go missing: one earlier profile lost 53 of 1731).
+    The same step launches the same kernels, so a profile is complete
+    when every kernel's count equals its largest count over the profiles
+    and each flash group shows the launches its wrapper counted; at least
+    two must be.  The breakdown is the first complete profile's.  The
+    step's device span (CUDA events around unprofiled steps) gives the
+    device's idle share within the step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from distributed_machine_learning_tpu_torch.ops.losses import mse_loss
     from distributed_machine_learning_tpu_torch.ops.optimizers import (
@@ -857,27 +1000,65 @@ def _profile_step(train) -> dict:
     perm = torch.arange(8)
     float(step(opt, x, y, perm, None))  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(step(opt, x, y, perm, None))
-        step_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel, n_launches = {}, 0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[evt.key] = evt.self_device_time_total / 1e3
-            n_launches += evt.count
-    groups = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0,
-              "other": 0.0}
+    span_ms = cuda_ms(lambda: float(step(opt, x, y, perm, None)), iters=3,
+                      warmup=0)
+    names = ("flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd")
+    runs = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            float(step(opt, x, y, perm, None))
+            prof.step()
+            counters = _reset_counters()
+            t0 = time.perf_counter()
+            float(step(opt, x, y, perm, None))
+            step_ms = (time.perf_counter() - t0) * 1e3
+            launched = {c.name: c.count for c in counters}
+            prof.step()
+        by_kernel, counts = {}, {}
+        for evt in prof.key_averages():
+            # The schedule's step annotation spans the step on the device
+            # timeline; it is no kernel.
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and not evt.key.startswith("ProfilerStep")):
+                by_kernel[evt.key] = evt.self_device_time_total / 1e3
+                counts[evt.key] = evt.count
+        group_counts = {g: sum(n for k, n in counts.items()
+                               if f"{g}_kernel" in k) for g in names}
+        runs.append((step_ms, by_kernel, counts, group_counts, launched))
+    totals = [sum(r[2].values()) for r in runs]
+    most = {k: max(r[2].get(k, 0) for r in runs)
+            for r in runs for k in r[2]}
+    complete = [r for r in runs if r[2] == most and r[3] == r[4]]
+    if len(complete) < 2:
+        missing = [{k: n - r[2].get(k, 0) for k, n in most.items()
+                    if r[2].get(k, 0) != n} for r in runs]
+        raise AssertionError(
+            f"train: fewer than two complete profiles of the step: device "
+            f"events {totals}, missing {missing}, flash groups "
+            f"{[(r[3], r[4]) for r in runs]}")
+    step_ms, by_kernel, counts, group_counts, _ = complete[0]
+    dq_kernels = [k for k in counts if "flash_bwd_dq_kernel" in k]
+    if not all("flash_bwd_dq_kernel_wgmma" in k for k in dq_kernels):
+        raise AssertionError(f"train: the bf16 step ran dQ through "
+                             f"{dq_kernels}, not the tensor-core kernel")
+    groups = {g: 0.0 for g in (*names, "other")}
     for key, ms in by_kernel.items():
-        group = next((g for g in ("flash_bwd_dkdv", "flash_bwd_dq",
-                                  "flash_fwd") if f"{g}_kernel" in key),
-                     "other")
-        groups[group] += ms
+        groups[next((g for g in names if f"{g}_kernel" in key),
+                    "other")] += ms
+    busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "step_host_ms": step_ms, "step_device_ms": sum(by_kernel.values()),
-        "step_kernel_launches": n_launches,
+        "step_host_ms": step_ms, "step_device_ms": busy_ms,
+        "step_device_span_ms": span_ms,
+        "step_device_idle_share": 1.0 - busy_ms / span_ms,
+        "step_kernel_launches": sum(most.values()),
+        "step_kernel_launches_by_profile": totals,
+        "step_launches_by_group": {**group_counts,
+                                   "other": sum(most.values()) - sum(
+                                       group_counts.values())},
         "step_device_ms_by_group": groups,
         "step_device_top_ms": {k[:70]: v for k, v in top},
     }
@@ -977,6 +1158,7 @@ def main() -> int:
 
     phase_build()
     timings = {"flash_fwd": phase_kernel(), **phase_kernel_bwd()}
+    timings_f32 = phase_kernel_f32()
     phase_serve("serve", FLAGSHIP, FLAGSHIP["max_seq_length"],
                 n_requests=32, atol=3e-2)
     phase_serve("serve_gqa", GQA_ROPE, 96, n_requests=16, atol=2e-4)
@@ -1000,6 +1182,11 @@ def main() -> int:
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},
             "bound_share": t["bound_ms"] / t["ms"],
+            # The same kernel's f32 (CUDA-core) instantiation, not on the
+            # bf16 main path; its bound at the f32 CUDA-core peak.
+            "f32": {k: timings_f32[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "tflops")},
         })
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -50,10 +50,30 @@
 // 16-byte-aligned rows with D a multiple of 8 (ops/flash_attention.py
 // pads and copies what does not conform).
 //
-// f32 dkdv and dq (both dtypes): CUDA-core FMAs from tiles staged in
-// shared memory as f32, reading every tensor through its element strides
+// bf16 dq: `flash_bwd_dq_kernel_wgmma`, the forward's design with V
+// replaced by K in the last product.  One block per (b*H + head, 128 q
+// rows), two warpgroups of 64 rows (64 rows and one warpgroup at D > 128;
+// at D <= 64 two blocks share an SM).
+// Q and dO stay in shared memory as bf16 tiles, the block's lse and delta
+// in registers (two rows a thread); K and V stream through the two-stage
+// cp.async ring, stopping at the last live kv tile under causal.  S = Q K^T
+// and dP = dO V^T are wgmmas from shared memory (K and V read K-major);
+// P and dS = P (dP - delta) scale are formed in f32 on the accumulator
+// fragments with one ex2 instruction per entry, the mask applied only on
+// the ragged and diagonal kv tiles.  dS is rounded to bf16 as the register
+// A operand of dQ += dS K, with K read MN-major from the same tile, so
+// nothing is transposed; dQ accumulates in f32 registers and is written
+// once.  No atomics: a rerun gives the same bits.
+//
+// f32 dkdv and dq: CUDA-core FMAs from tiles staged in shared memory as
+// f32 (Hopper's tensor cores take f32 only as tf32, which would not hold
+// f32 precision), reading every tensor through its element strides
 // (autograd may hand in an expanded dO with stride 0) and masking the
 // ragged edges of S and D, so any layout and any D in 1..256 work.
+//
+// Grid.  Every launch puts the (b, head) index on gridDim.x and the tile
+// on gridDim.y (hopper.cuh: kMaxGridX, kMaxGridY), so B*H is not capped
+// at 65535 as the y axis would cap it.
 //
 // Measured times sit in PERF.md.
 
@@ -75,19 +95,12 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
 }
 
 // N consecutive floats from shared memory, in 16- or 8-byte loads.
@@ -232,11 +245,11 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int rg = tid / kColGroups;
   const int cg = tid % kColGroups;
-  const int bkv = blockIdx.y;  // b * Hkv + kv_head
+  const int bkv = blockIdx.x;  // b * Hkv + kv_head
   const int b = bkv / Hkv;
   const int hk = bkv % Hkv;
   const int group = H / Hkv;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.y * BK;
 
   stage_transposed<T, DMAX>(sKT, KP, k + b * ks.b + hk * ks.h, ks, k0, BK, S,
                             D);
@@ -359,11 +372,11 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int rg = tid / kColGroups;
   const int cg = tid % kColGroups;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.y * BQ;
 
   stage_transposed<T, DMAX>(sQT, QP, q + b * qs.b + h * qs.h, qs, q0, BQ, S,
                             D);
@@ -448,7 +461,8 @@ cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + BK - 1) / BK, a.B * a.Hkv);
+  const dim3 grid(a.B * a.Hkv, (a.S + BK - 1) / BK);
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -464,7 +478,8 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  const dim3 grid(a.B * a.H, (a.S + BQ - 1) / BQ);
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -546,11 +561,11 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dkdv_kernel_wgmma(
   const int warp = (tid % 128) / 32;
   const int g = (tid % 32) / 4;
   const int c4 = tid % 4;
-  const int bkv = blockIdx.y;  // b * Hkv + kv_head
+  const int bkv = blockIdx.x;  // b * Hkv + kv_head
   const int b = bkv / Hkv;
   const int hk = bkv % Hkv;
   const int group = H / Hkv;
-  const int k0 = blockIdx.x * BKV;
+  const int k0 = blockIdx.y * BKV;
   const int kvrow0 = k0 + 64 * kv_sub + 16 * warp + g;  // and kvrow0 + 8
 
   const int nq = (S + BQ - 1) / BQ;
@@ -694,7 +709,8 @@ cudaError_t launch_dkdv_wgmma(const Args& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   constexpr int BKV = 128 / DSPLIT;
-  const dim3 grid((a.S + BKV - 1) / BKV, a.B * a.Hkv);
+  const dim3 grid(a.B * a.Hkv, (a.S + BKV - 1) / BKV);
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
   kern<<<grid, 256, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
@@ -718,7 +734,231 @@ cudaError_t dispatch_dkdv_wgmma(const Args& a, cudaStream_t st) {
   return launch_dkdv_wgmma<256, 32, 2>(a, st);
 }
 
-// CUDA-core tiles per head-dim bucket (dq in both dtypes, dkdv in f32);
+// ---- bf16 dQ on the tensor cores -----------------------------------------
+
+template <int DMAX, int BK, int NWG>
+constexpr size_t dq_wgmma_smem_bytes() {
+  // Q and dO [64 * NWG x DMAX] and STAGES stages of K and V [BK x DMAX],
+  // bf16, plus the slack that aligns the base to 1024 bytes.
+  return (size_t)2 * DMAX * (2 * 64 * NWG + 2 * hopper::STAGES * BK) + 1024;
+}
+
+// P and dS of one (q tile, kv tile) pair on this thread's fragments (q
+// rows row0 + 8*(e/2), kv columns k0 + 8j + 2*c4 + e%2), in place of S
+// and dP.  `lse2` is each row's lse * log2(e), +inf where lse = -inf, so
+// that such a row gives P = 0 with no test; MASK applies the ragged-edge
+// and causal rules.
+template <bool MASK, int BK>
+__device__ __forceinline__ void recompute_rows_wgmma(
+    float (&s)[BK / 2], float (&dp)[BK / 2], const float (&lse2)[2],
+    const float (&dl)[2], int k0, int col0, int row0, int S, int causal,
+    float sl2, float scale) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = hopper::fast_exp2(s[4 * j + e] * sl2 - lse2[r]);
+      if (MASK) {
+        const int col = k0 + 8 * j + col0 + (e & 1);
+        if (col >= S || (causal && col > row0 + 8 * r)) p = 0.f;
+      }
+      s[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - dl[r]) * scale;
+    }
+}
+
+template <int DMAX, int BK, int NWG>
+__global__ void __launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)
+    flash_bwd_dq_kernel_wgmma(
+    const hopper::bf16* __restrict__ q, const hopper::bf16* __restrict__ k,
+    const hopper::bf16* __restrict__ v, const hopper::bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    hopper::bf16* __restrict__ dq, int S, int H, int Hkv, int D, Strides qs,
+    Strides ks, Strides vs, Strides dos, float scale, int causal) {
+  using namespace hopper;
+  constexpr int BQ = 64 * NWG;
+  constexpr int NT = 128 * NWG;
+  constexpr int NCH = DMAX < 128 ? DMAX : 128;  // dQ columns per dS K wgmma
+  constexpr uint32_t kQBytes = BQ * DMAX * 2;
+  constexpr uint32_t kKVBytes = BK * DMAX * 2;
+  static_assert(DMAX % 64 == 0 && BK % 16 == 0, "tiles");
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdO = sQ + kQBytes;
+  auto sK = [&](int st) { return sdO + kQBytes + st * 2 * kKVBytes; };
+  auto sV = [&](int st) { return sK(st) + kKVBytes; };
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;  // row within the warp's 8-row half
+  const int c4 = tid % 4;        // column pair within an 8-column chunk
+  const int bh = blockIdx.x;     // b * H + head
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
+  const int q0 = blockIdx.y * BQ;
+  const int row0 = q0 + 64 * wg + 16 * warp + g;  // and row0 + 8
+
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  auto load_kv = [&](int t) {
+    const int st = t % STAGES;
+    load_tile<DMAX, BK, NT>(sK(st), kb, ks.s, t * BK, S, D, tid);
+    load_tile<DMAX, BK, NT>(sV(st), vb, vs.s, t * BK, S, D, tid);
+  };
+
+  int n_kv = (S + BK - 1) / BK;
+  if (causal) {
+    // kv tile t is live iff t*BK <= q0 + BQ - 1.
+    n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
+  }
+
+  // The ring: Q and dO with kv tile 0, then one commit group per kv tile.
+  load_tile<DMAX, BQ, NT>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, S, D, tid);
+  load_tile<DMAX, BQ, NT>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, S,
+                          D, tid);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_kv) load_kv(t);
+    cp_async_commit();
+  }
+
+  // lse (log2 domain) and delta of this thread's two rows; rows past S
+  // take lse = -inf, which zeroes their P and dS.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float l = row < S ? lse[(long long)bh * S + row] : -INFINITY;
+    lse2[r] = isfinite(l) ? l * kLog2e : INFINITY;
+    dl[r] = row < S ? delta[(long long)bh * S + row] : 0.f;
+  }
+
+  float acc[DMAX / 2];
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int st = t % STAGES;
+    if (t + STAGES - 1 < n_kv) load_kv(t + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile t (and Q, dO) have landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows.
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;  // within the 128-byte row
+      const uint32_t q_off = (kk / 4) * BQ * 128 + wg * 64 * 128 + col;
+      const uint32_t kv_off = (kk / 4) * BK * 128 + col;
+      Wgmma<BK>::ss(s, desc_k_major(sQ + q_off),
+                    desc_k_major(sK(st) + kv_off), kk > 0);
+      Wgmma<BK>::ss(dp, desc_k_major(sdO + q_off),
+                    desc_k_major(sV(st) + kv_off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P and dS on the fragments.  Only the ragged last kv tile and kv
+    // tiles that cross this warpgroup's causal diagonal need the mask.
+    const int k0 = t * BK;
+    if (k0 + BK > S || (causal && k0 + BK - 1 > q0 + 64 * wg))
+      recompute_rows_wgmma<true, BK>(s, dp, lse2, dl, k0, 2 * c4, row0, S,
+                                     causal, sl2, scale);
+    else
+      recompute_rows_wgmma<false, BK>(s, dp, lse2, dl, k0, 2 * c4, row0, S,
+                                      causal, sl2, scale);
+
+    // dQ += dS K, dS rounded to bf16 as the A operand and K read MN-major
+    // from the same tile.
+    uint32_t ads[BK / 16][4];
+    to_a_fragments<BK>(dp, ads);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int nc = 0; nc < DMAX / NCH; ++nc) {
+        float(&o)[NCH / 2] =
+            *reinterpret_cast<float(*)[NCH / 2]>(&acc[nc * NCH / 2]);
+        const uint64_t dk = desc_mn_major(
+            sK(st) + kk * 2048 + nc * (NCH / 64) * BK * 128, BK * 128);
+        Wgmma<NCH>::rs(o, ads[kk], dk);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warpgroup is done with stage st
+  }
+
+  // dQ: contiguous [B, S, H, D].
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    bf16* out = dq + (((long long)b * S + row) * H + h) * (long long)D;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int d = 8 * j + 2 * c4;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + d) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int DMAX, int BK, int NWG>
+cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t stream) {
+  using hopper::bf16;
+  constexpr size_t smem = dq_wgmma_smem_bytes<DMAX, BK, NWG>();
+  auto kern = flash_bwd_dq_kernel_wgmma<DMAX, BK, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.S + 64 * NWG - 1) / (64 * NWG));
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
+  kern<<<grid, 128 * NWG, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.dq), a.S, a.H, a.Hkv, a.D, a.qs, a.ks,
+      a.vs, a.dos, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// bf16 dQ tiles per head-dim bucket, (block_q, block_k) = (64 * NWG, BK);
+// ops/flash_attention.py::BACKWARD_TILES["flash_bwd_dq"]["bfloat16"]
+// mirrors this table.  Shared memory: 49, 129 and 129 KB.  At D <= 64 the
+// 32-column kv tile and the launch bound keep a thread at 128 registers
+// without spilling, so two blocks share an SM and one block's softmax
+// overlaps the other's products (PERF.md: 0.26 ms at the flagship shape
+// against 0.31 for one block of 64 kv columns; 64 columns under the same
+// bound spill).  At D = 256 one warpgroup of 64 rows and a 32-column kv
+// tile keep dQ (128 registers a thread), S and dP within 255.
+cudaError_t dispatch_dq_wgmma(const Args& a, cudaStream_t st) {
+  if (!hopper::tensor_core_operand(a.q, a.qs, a.D) ||
+      !hopper::tensor_core_operand(a.k, a.ks, a.D) ||
+      !hopper::tensor_core_operand(a.v, a.vs, a.D) ||
+      !hopper::tensor_core_operand(a.dout, a.dos, a.D))
+    return cudaErrorInvalidValue;
+  if (a.D <= 64) return launch_dq_wgmma<64, 32, 2>(a, st);
+  if (a.D <= 128) return launch_dq_wgmma<128, 64, 2>(a, st);
+  return launch_dq_wgmma<256, 32, 1>(a, st);
+}
+
+// CUDA-core tiles per head-dim bucket (dq and dkdv in f32);
 // ops/flash_attention.py::BACKWARD_TILES mirrors this table.  Untuned:
 // the first correct choice that fits shared memory (the largest, D <= 128
 // at 64 x 64, takes 174 KB in dkdv).
@@ -739,7 +979,7 @@ cudaError_t dispatch(const Args& a, cudaStream_t st) {
 
 int check(const Args& a) {
   if (a.B < 1 || a.S < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
-      a.D < 1 || a.D > 256 || a.B * a.H > 65535)
+      a.D < 1 || a.D > 256 || (long long)a.B * a.H > hopper::kMaxGridX)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -764,8 +1004,8 @@ extern "C" {
 // holds 16 element strides, (b, s, h, d) of q, k, v and dout in turn.
 // lse and delta are contiguous [B*H, S] f32; dk and dv are contiguous
 // [B, S, Hkv, D] and dq contiguous [B, S, H, D], in the input dtype.
-// bf16 dkdv inputs must satisfy tensor_core_operand
-// (cudaErrorInvalidValue otherwise).
+// bf16 inputs must satisfy tensor_core_operand (cudaErrorInvalidValue
+// otherwise).
 int dml_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int S, int H, int Hkv, int D,
@@ -788,7 +1028,7 @@ int dml_flash_bwd_dq(const void* q, const void* k, const void* v,
                            S, H, Hkv, D, strides, scale, causal);
   if (int err = check(a)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)dispatch<__nv_bfloat16, false>(a, st);
+  if (is_bf16) return (int)dispatch_dq_wgmma(a, st);
   return (int)dispatch<float, false>(a, st);
 }
 

@@ -132,11 +132,11 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int rg = tid / kColGroups;
   const int cg = tid % kColGroups;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.y * BQ;
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + hk * ks.h;
@@ -280,7 +280,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, D, qs,
@@ -346,11 +347,11 @@ __global__ void __launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)
   const int warp = (tid % 128) / 32;
   const int g = (tid % 32) / 4;  // row within the warp's 8-row half
   const int c4 = tid % 4;        // column pair within an 8-column chunk
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.y * BQ;
   const int row0 = q0 + 64 * wg + 16 * warp + g;  // and row0 + 8
 
   const bf16* qb = q + b * qs.b + h * qs.h;
@@ -489,7 +490,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + 64 * NWG - 1) / (64 * NWG), B * H);
+  const dim3 grid(B * H, (S + 64 * NWG - 1) / (64 * NWG));
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
   kern<<<grid, 128 * NWG, smem, stream>>>(
       static_cast<const hopper::bf16*>(q), static_cast<const hopper::bf16*>(k),
       static_cast<const hopper::bf16*>(v), static_cast<hopper::bf16*>(o), lse,
@@ -556,7 +558,7 @@ int dml_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   long long vsb, long long vss, long long vsh, long long vsd,
                   float scale, int causal, int is_bf16, void* stream) {
   if (B < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || D < 1 ||
-      D > 256 || B * H > 65535)
+      D > 256 || (long long)B * H > hopper::kMaxGridX)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh, qsd};
   const Strides ks{ksb, kss, ksh, ksd};

@@ -94,6 +94,13 @@ inline bool tensor_core_operand(const void* p, const St& st, int D) {
          reinterpret_cast<uintptr_t>(p) % 16 == 0 && D % 8 == 0;
 }
 
+// CUDA's grid limits, which every launch of flash_fwd.cu and flash_bwd.cu
+// meets by putting the (batch, head) index on gridDim.x (up to 2^31 - 1
+// blocks) and the q or kv tile on gridDim.y (at most 65535, which only a
+// sequence of more than 2 M rows reaches).
+constexpr long long kMaxGridX = 2147483647LL;
+constexpr unsigned kMaxGridY = 65535u;
+
 // Depth of the cp.async ring of the bf16 kernels: the next tile loads
 // while this one computes.  A third stage measured no faster (PERF.md).
 constexpr int STAGES = 2;

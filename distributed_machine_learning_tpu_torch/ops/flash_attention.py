@@ -11,11 +11,11 @@ tensor takes :func:`flash_attention_reference` /
 :func:`flash_attention_backward_reference`, the plain PyTorch versions of
 the same functions.  Nothing falls back from one to the other.
 
-On the card the forward and the dK/dV kernel pick their code by dtype:
-bf16 runs on the tensor cores (``wgmma``), reading rows with 16-byte
-copies, so :func:`tensor_core_operands` first copies any input whose
-layout they cannot read; f32 runs on the CUDA cores, through strides, at
-f32 precision.  The dQ kernel runs on the CUDA cores in both dtypes.
+On the card every kernel picks its code by dtype: bf16 runs on the
+tensor cores (``wgmma``), reading rows with 16-byte copies, so
+:func:`tensor_core_operands` first copies any input whose layout they
+cannot read; f32 runs on the CUDA cores, through strides, at f32
+precision.
 
 Shapes follow the JAX package: q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]``
 with ``H % Hkv == 0`` (grouped-query attention; kv is never repeated),
@@ -38,9 +38,10 @@ BACKWARD_SOURCE = "flash_bwd"
 # (head-dim bucket, (block_q, block_k)) per kernel and dtype, as compiled
 # in csrc/flash_fwd.cu and csrc/flash_bwd.cu.  bf16 is the tensor-core
 # code (block_q = 64 rows per warpgroup; the dK/dV kernel's block_k is
-# the kv rows one block owns); f32, and dQ in both dtypes, the CUDA-core
-# code.  Untuned beyond fitting Hopper's registers and shared memory.  The
-# TPU package's VMEM-derived caps (_default_blocks there) do not apply.
+# the kv rows one block owns), each the fastest of the variants that
+# chip_flash_study.py measured (PERF.md); f32 the CUDA-core code, untuned
+# beyond fitting Hopper's registers and shared memory.  The TPU package's
+# VMEM-derived caps (_default_blocks there) do not apply.
 _CUDA_CORE_FORWARD = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
                       (256, (32, 64)))
 _CUDA_CORE_BACKWARD = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
@@ -55,9 +56,13 @@ BACKWARD_TILES = {
         "bfloat16": ((64, (64, 128)), (128, (64, 64)), (256, (32, 64))),
     },
     "flash_bwd_dq": {"float32": _CUDA_CORE_BACKWARD,
-                     "bfloat16": _CUDA_CORE_BACKWARD},
+                     "bfloat16": ((64, (128, 32)), (128, (128, 64)),
+                                  (256, (64, 32)))},
 }
 MAX_HEAD_DIM = 256
+# Every launch puts (batch, head) on gridDim.x, which takes 2**31 - 1
+# blocks, and its q or kv tile on gridDim.y, which takes at most 65535.
+MAX_GRID_TILES = 65535
 
 
 class LaunchCounter:
@@ -183,9 +188,24 @@ def _check_kernel_inputs(q, k, v):
         raise TypeError("q, k and v must share one dtype")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must lie on one device")
-    if B * H > 65535:
-        raise ValueError(f"batch*heads {B * H} exceeds the kernel grid")
     return B, S, H, Hkv, D
+
+
+def _check_grid(kernel: str, S: int, D: int, dtype: torch.dtype) -> None:
+    """Refuse a sequence with more tiles than ``gridDim.y`` takes
+    (:data:`MAX_GRID_TILES`; more than 2 M rows).  Batch x heads has no
+    cap short of ``gridDim.x``'s 2**31 - 1, which the C side checks."""
+    if kernel == KERNEL_NAME:
+        rows = _default_blocks(S, D, dtype=dtype)[0]
+    else:
+        block_q, block_k = _default_blocks(S, D, backward=True,
+                                           dtype=dtype)[kernel]
+        # A dK/dV block owns block_k kv rows, a dQ block block_q q rows.
+        rows = block_k if kernel == "flash_bwd_dkdv" else block_q
+    n = -(-S // rows)
+    if n > MAX_GRID_TILES:
+        raise ValueError(f"{kernel}: S = {S} needs {n} tiles, more than the "
+                         f"kernel grid's {MAX_GRID_TILES}")
 
 
 def _conforms(t: torch.Tensor) -> bool:
@@ -242,6 +262,7 @@ def _launch(q, k, v, scale: float, causal: bool):
     if q.dtype == torch.bfloat16:
         q, k, v = tensor_core_operands(q, k, v)
     d_run = q.shape[-1]
+    _check_grid(KERNEL_NAME, S, d_run, q.dtype)
     out = torch.empty((B, S, H, d_run), dtype=q.dtype, device=q.device)
     from distributed_machine_learning_tpu_torch.ops import _build
 
@@ -386,6 +407,7 @@ def _launch_bwd(fn_name: str, counter: LaunchCounter, q, k, v, lse, do,
     _check_dout(q, do)
     if B * S * H * D == 0:
         return
+    _check_grid(counter.name, S, D, q.dtype)
     # [B*H, S] f32 rows, contiguous, as the kernels index them.
     lse = lse.to(torch.float32).reshape(B * H, S).contiguous()
     delta = delta.to(torch.float32).reshape(B * H, S).contiguous()
@@ -443,10 +465,15 @@ def flash_bwd_dq(q, k, v, lse, do, delta, scale: float,
     plain version."""
     if _on_device(q) == "cpu":
         return flash_bwd_dq_reference(q, k, v, lse, do, delta, scale, causal)
+    _check_kernel_inputs(q, k, v)
+    _check_dout(q, do)
+    D = q.shape[-1]
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tensor_core_operands(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("dml_flash_bwd_dq", dq_launches, q, k, v, lse, do, delta,
                 scale, causal, (dq,))
-    return dq
+    return _unpad(dq, D)
 
 
 def flash_backward(
@@ -458,7 +485,9 @@ def flash_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients ``(dq, dk, dv)`` of flash attention; dk/dv at Hkv heads.
     The dK/dV kernel runs first, then the dQ kernel, as in
-    ``_flash_backward``.
+    ``_flash_backward``.  In bf16 on the card both read one conforming
+    copy (:func:`tensor_core_operands`) of whatever input needs one, such
+    as autograd's stride-0 dO.
 
     ``q_side``: optional precomputed ``(q, do, delta)`` (delta from
     :func:`backward_delta`), as in the JAX package's ``_flash_backward``:
@@ -470,11 +499,14 @@ def flash_backward(
         _on_device(q)
         delta = backward_delta(out, do)
     s = (q.shape[-1] ** -0.5) if scale is None else float(scale)
-    _default_blocks(q.shape[1], q.shape[-1], block_q, block_k, backward=True,
+    D = q.shape[-1]
+    _default_blocks(q.shape[1], D, block_q, block_k, backward=True,
                     dtype=q.dtype)
+    if q.dtype == torch.bfloat16 and _on_device(q) == "cuda":
+        q, k, v, do = tensor_core_operands(q, k, v, do)
     dk, dv = flash_bwd_dkdv(q, k, v, lse, do, delta, s, causal)
     dq = flash_bwd_dq(q, k, v, lse, do, delta, s, causal)
-    return dq, dk, dv
+    return _unpad(dq, D), _unpad(dk, D), _unpad(dv, D)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -127,6 +127,66 @@ def test_bf16_tensor_core_kernels_match_plain_version(card, causal, H, Hkv,
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
+def _stored_transposed(t):
+    """The values of ``t`` [B, S, H, D] stored as [B, H, D, S]."""
+    return t.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
+
+# The tensor-core dQ kernel: every head-dim bucket, ragged S, grouped kv,
+# causal masking, D = 33 and inputs stored [B, H, D, S] (both through the
+# wrapper's conforming copy).  It rounds dS to bf16 before dS K, within
+# KERNEL_TOL (2e-2 of the largest entry) as the dK/dV kernel's rounding of
+# dS^T is.
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("H,Hkv,D,S,layout", [
+    (8, 8, 64, 130, "dense"), (8, 1, 64, 1000, "dense"),
+    (8, 2, 33, 130, "dense"), (8, 4, 64, 200, "transposed"),
+    (4, 2, 128, 130, "dense"), (4, 1, 33, 300, "transposed"),
+    (2, 2, 256, 130, "dense")])
+def test_bf16_dq_kernel_matches_plain_version(card, causal, H, Hkv, D, S,
+                                              layout):
+    gen = torch.Generator().manual_seed(S + D + 3)
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(2, S, h, D, generator=gen).to(card, bf)
+                   for h in (H, Hkv, Hkv, H))
+    if layout == "transposed":
+        q, k, v, do = (_stored_transposed(x) for x in (q, k, v, do))
+        assert q.stride(-1) != 1
+    out, lse = fa.flash_forward(q, k, v, 0.3, causal, with_lse=True)
+    delta = fa.backward_delta(out, do)
+    before = fa.dq_launches.count
+    dq = fa.flash_bwd_dq(q, k, v, lse, do, delta, 0.3, causal)
+    dq2 = fa.flash_bwd_dq(q, k, v, lse, do, delta, 0.3, causal)
+    ref = fa.flash_bwd_dq_reference(q, k, v, lse, do, delta, 0.3, causal)
+    torch.cuda.synchronize()
+    assert fa.dq_launches.count == before + 2
+    assert dq.shape == q.shape and dq.dtype == bf
+    assert _rel_err(dq, ref) <= 2e-2
+    # No atomics: the same bits on a rerun.
+    assert torch.equal(dq, dq2)
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 2e-4), ("bfloat16", 2e-2)])
+def test_kernels_take_batch_times_heads_past_65535(card, dtype, rtol):
+    """B*H = 65544 blocks on the grid's x axis, through all three kernels
+    (dK/dV at B*Hkv = 32772), against the plain versions."""
+    gen = torch.Generator().manual_seed(65544)
+    dt = getattr(torch, dtype)
+    B, S, H, Hkv, D = 8193, 24, 8, 4, 16
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen).to(card, dt)
+                   for h in (H, Hkv, Hkv, H))
+    out, lse = fa.flash_forward(q, k, v, None, True, with_lse=True)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, D ** -0.5, True)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, None, True)
+    ref = fa.flash_attention_backward_reference(
+        q, k, v, lse, do, fa.backward_delta(out, do), D ** -0.5, True)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref_out) <= rtol
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert _rel_err(got, want) <= rtol, name
+
+
 def test_bf16_kernels_take_conforming_copies(card):
     """D = 33 and q/k/v stored [B, H, D, S] (D not innermost), with the
     stride-0 dO that .sum().backward() hands in: the wrapper copies and
@@ -149,8 +209,9 @@ def test_bf16_kernels_take_conforming_copies(card):
 
 
 def test_tensor_core_kernels_run_hgmma(card):
-    """The bf16 kernels compile to Hopper's warpgroup MMA (HGMMA in the
-    SASS), where the toolkit has cuobjdump to show it."""
+    """The bf16 kernels (forward, dK/dV and dQ) compile to Hopper's
+    warpgroup MMA (HGMMA in the SASS), where the toolkit has cuobjdump to
+    show it."""
     from distributed_machine_learning_tpu_torch.ops import _build
 
     fa.build_kernels()
@@ -160,6 +221,9 @@ def test_tensor_core_kernels_run_hgmma(card):
             pytest.skip("the toolkit has no cuobjdump")
         wgmma = {k: c for k, c in counts.items() if "_wgmma" in k}
         assert wgmma and all(c["HGMMA"] > 0 for c in wgmma.values())
+        if name == fa.BACKWARD_SOURCE:
+            assert {k.split("<")[0] for k in wgmma} == {
+                "flash_bwd_dkdv_kernel_wgmma", "flash_bwd_dq_kernel_wgmma"}
 
 
 @pytest.mark.parametrize("layout", ["fused_qkv", "heads_first"])

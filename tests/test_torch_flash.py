@@ -133,23 +133,27 @@ def test_fixed_kernel_tile_and_shape_checks():
         port._default_blocks(2048, 256, block_k=64, backward=True)
     with pytest.raises(ValueError, match="compiled for tiles"):
         port._default_blocks(2048, 64, block_q=128)
-    # bf16: the tensor-core tiles (64 q rows per warpgroup) of the forward
-    # and dK/dV kernels; dQ keeps the CUDA-core tiles.
+    # bf16: the tensor-core tiles (64 q rows per warpgroup) of every
+    # kernel.
     assert port._default_blocks(2048, 64, dtype=bf16) == (128, 64)
     assert port._default_blocks(2048, 40, block_q=128, dtype=bf16) == (128,
                                                                       64)
     assert port._default_blocks(2048, 128, dtype=bf16) == (128, 64)
     assert port._default_blocks(2048, 256, dtype=bf16) == (64, 32)
     assert port._default_blocks(2048, 64, backward=True, dtype=bf16) == {
-        "flash_bwd_dkdv": (64, 128), "flash_bwd_dq": (64, 64)}
+        "flash_bwd_dkdv": (64, 128), "flash_bwd_dq": (128, 32)}
+    assert port._default_blocks(2048, 128, backward=True, dtype=bf16) == {
+        "flash_bwd_dkdv": (64, 64), "flash_bwd_dq": (128, 64)}
     assert port._default_blocks(2048, 256, backward=True, dtype=bf16) == {
-        "flash_bwd_dkdv": (32, 64), "flash_bwd_dq": (32, 32)}
-    assert port._default_blocks(2048, 64, block_q=64, backward=True,
-                                dtype=bf16)["flash_bwd_dkdv"] == (64, 128)
+        "flash_bwd_dkdv": (32, 64), "flash_bwd_dq": (64, 32)}
+    assert port._default_blocks(2048, 128, block_k=64, backward=True,
+                                dtype=bf16)["flash_bwd_dkdv"] == (64, 64)
     with pytest.raises(ValueError, match="compiled for tiles"):
         port._default_blocks(2048, 64, block_q=64, dtype=bf16)
-    # No block_k serves both backward kernels at bf16, D <= 64.
-    for block_k in (64, 128):
+    # No block_q or block_k serves both backward kernels at bf16, D <= 64.
+    with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
+        port._default_blocks(2048, 64, block_q=64, backward=True, dtype=bf16)
+    for block_k in (32, 64, 128):
         with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
             port._default_blocks(2048, 64, block_k=block_k, backward=True,
                                  dtype=bf16)
@@ -163,6 +167,31 @@ def test_fixed_kernel_tile_and_shape_checks():
         port.flash_forward(q, k[:, :-1], v[:, :-1])
     with pytest.raises(ValueError, match="cuda or cpu"):
         port.flash_forward(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_kernel_inputs_take_batch_times_heads_past_65535():
+    """The kernels put (batch, head) on the grid's x axis, so B*H = 65536
+    passes the wrapper's checks (meta tensors: shapes only, no memory);
+    only a sequence with more than 65535 tiles on the y axis is refused."""
+    bf16 = torch.bfloat16
+    for dtype in (torch.float32, bf16):
+        q = torch.empty(8192, 24, 8, 16, device="meta", dtype=dtype)
+        kv = torch.empty(8192, 24, 4, 16, device="meta", dtype=dtype)
+        assert port._check_kernel_inputs(q, kv, kv) == (8192, 24, 8, 4, 16)
+        port._check_dout(q, q)
+        for name in (port.KERNEL_NAME, "flash_bwd_dkdv", "flash_bwd_dq"):
+            port._check_grid(name, 24, 16, dtype)
+    # The y axis: 65535 tiles of the kernel's own rows per block.
+    port._check_grid("flash_bwd_dq", 65535 * 128, 64, bf16)
+    with pytest.raises(ValueError, match="65536 tiles"):
+        port._check_grid("flash_bwd_dq", 65535 * 128 + 1, 64, bf16)
+    port._check_grid("flash_bwd_dkdv", 65535 * 32, 256, torch.float32)
+    with pytest.raises(ValueError, match="kernel grid"):
+        port._check_grid("flash_bwd_dkdv", 65535 * 32 + 1, 256,
+                         torch.float32)
+    port._check_grid(port.KERNEL_NAME, 65535 * 64, 256, bf16)
+    with pytest.raises(ValueError, match="kernel grid"):
+        port._check_grid(port.KERNEL_NAME, 65535 * 64 + 1, 256, bf16)
 
 
 def _stored_transposed(t):

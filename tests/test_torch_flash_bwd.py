@@ -153,7 +153,7 @@ def test_backward_tile_is_checked_before_the_forward_runs():
     out = port.flash_attention(q.detach(), k, v, block_k=64)
     assert out.shape == q.shape
     # bf16: the tensor-core forward's tile is (64, 32); the dK/dV kernel's
-    # is (32, 64) and the dQ kernel's (32, 32), so no block_k serves all.
+    # is (32, 64) and the dQ kernel's (64, 32), so no block_k serves all.
     qb, kb, vb = (t.detach().to(torch.bfloat16) for t in (q, k, v))
     with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
         port.flash_attention(qb.requires_grad_(), kb, vb, block_k=32)
