@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Variants of the port's bf16 flash kernels on one NVIDIA GPU: what each
-tile and precision choice costs, and how it moves a training step.
+"""Variants of the port's flash kernels on one NVIDIA GPU: what each tile,
+precision and loading choice costs, and how it moves a training step.
 
     python3 chip_flash_study.py      # from the repository root; one card
 
 The sources in ``distributed_machine_learning_tpu_torch/csrc/`` are the
 baseline ("shipped").  Each variant is the same sources with a few text
 edits (a tile, a launch bound, the ring depth, the forward's split of P,
-the dQ kernel's split of dS, the always-on mask and ``exp2f``), built with nvcc
-into ``_build/study/`` and swapped in under the port's wrappers.  Every
-variant is held against the plain PyTorch version at KERNEL_TOL, timed in
-turns with the others at the flagship shape (B=8, S=2048, H=8, D=64,
-bf16), and read on one flagship bf16 training step (chip_smoke.py's
-``_step_grads``, per parameter against the plain step).  Forward variants
+the dQ kernel's split of dS, the always-on mask and ``exp2f``; for the
+f32 split-precision kernels, ``f32_*``: the f32 staging tile against
+splitting straight from global memory, the blocks per SM and the q tile),
+built with nvcc into ``_build/study/`` and swapped in under the port's
+wrappers.  Every variant is held against the plain PyTorch version at
+KERNEL_TOL of its dtype, timed in turns with the others of its kind at
+the flagship shape (B=8, S=2048, H=8, D=64, bf16 or f32), and read on one
+flagship training step of its dtype (chip_smoke.py's ``_step_grads``, per
+parameter against the plain step; f32 variants must stay within
+STEP_TOL["float32"]).  Forward variants
 are also held against the plain bf16 and f32 forwards on that step's own
 attention inputs.  A last part mixes kernel, plain and rounded-plain
 attention in the step, to show which rounding point moves it.
@@ -59,6 +63,29 @@ def _fwd_tile(bk: int):
 _BK128 = [_fwd_tile(128), _ONE_BLOCK]
 
 
+# f32: the K/V tiles split straight from global memory each step (plain
+# loads, latency exposed) instead of landing by cp.async in the staging
+# tile while the previous tile computes.
+_F32_FWD_UNSTAGED = [
+    ("  stage_kv(0);\n", ""),
+    ("    if (t + 1 < n_kv) stage_kv(t + 1);\n", ""),
+    ("    split_tile_staged<DMAX, BK, NT>(sK, sKf, tid);\n"
+     "    split_tile_staged<DMAX, BK, NT>(sV, sVf, tid);\n",
+     "    split_tile_global<DMAX, BK, NT>(sK, kb, ks.s, t * BK, S, D, tid);"
+     "\n"
+     "    split_tile_global<DMAX, BK, NT>(sV, vb, vs.s, t * BK, S, D, tid);"
+     "\n")]
+# f32: each operand as three bf16 parts and each product as the six part
+# products Ai Bj with i + j < 3 (about 2^-24 per operand); the forward's
+# tiles then take 129 KB, one block per SM.
+_F32_THREE_PARTS = ("constexpr int kSplitParts = 2;",
+                    "constexpr int kSplitParts = 3;")
+_F32_FWD_ONE_BLOCK = ("__launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)\n"
+                      "    flash_fwd_kernel_wgmma_f32",
+                      "__launch_bounds__(128 * NWG, 1)\n"
+                      "    flash_fwd_kernel_wgmma_f32")
+
+
 VARIANTS = {
     "fwd_shipped": ("flash_fwd", {}),
     "fwd_p_rounded": ("flash_fwd", {"flash_fwd.cu": [_P_ROUNDED]}),
@@ -96,7 +123,26 @@ VARIANTS = {
     "dq_one_block_bk64": ("flash_bwd", {"flash_bwd.cu": [
         _DQ_ONE_BLOCK, _DQ_BK64]}),
     "dq_two_blocks_bk64": ("flash_bwd", {"flash_bwd.cu": [_DQ_BK64]}),
+    "f32_fwd_shipped": ("flash_fwd", {}),
+    "f32_fwd_unstaged": ("flash_fwd", {"flash_fwd.cu": _F32_FWD_UNSTAGED}),
+    "f32_fwd_one_block_per_sm": ("flash_fwd", {"flash_fwd.cu": [
+        _F32_FWD_ONE_BLOCK]}),
+    "f32_fwd_three_parts": ("flash_fwd", {
+        "hopper.cuh": [_F32_THREE_PARTS],
+        "flash_fwd.cu": [_F32_FWD_ONE_BLOCK]}),
+    "f32_dkdv_shipped": ("flash_bwd", {}),
+    "f32_dkdv_bq32": ("flash_bwd", {"flash_bwd.cu": [
+        ("return launch_dkdv_wgmma_f32<64, 64, 1>(a, st);",
+         "return launch_dkdv_wgmma_f32<64, 32, 1>(a, st);")]}),
+    "f32_dkdv_three_parts": ("flash_bwd", {"hopper.cuh": [_F32_THREE_PARTS]}),
 }
+
+
+def _kind(name: str):
+    """(kernel kind "fwd", "dkdv" or "dq", dtype) of a variant."""
+    f32 = name.startswith("f32_")
+    return (name.removeprefix("f32_").split("_")[0],
+            "float32" if f32 else "bfloat16")
 
 
 def build_variants() -> dict:
@@ -149,24 +195,25 @@ class Swapped:
 
 
 def _check(name: str) -> float:
-    """The variant against the plain version at KERNEL_TOL (bf16) on the
-    flagship shape, causal, and a ragged grouped-kv shape."""
+    """The variant against the plain version at KERNEL_TOL of its dtype on
+    the flagship shape, causal, and a ragged grouped-kv shape."""
     import torch
 
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
 
+    kind, dtype = _kind(name)
     worst = 0.0
     for B, S, H, Hkv, causal in ((8, 2048, 8, 8, False), (2, 2048, 8, 8, True),
                                  (2, 130, 8, 1, True)):
         q, k, v, do, lse, delta = cs._bwd_inputs(B, S, H, Hkv, 64,
-                                                 torch.bfloat16, None, causal,
-                                                 S + H)
+                                                 getattr(torch, dtype), None,
+                                                 causal, S + H)
         s = 64 ** -0.5
-        if name.startswith("fwd"):
+        if kind == "fwd":
             got = fa.flash_forward(q, k, v, s, causal)
             want = fa.flash_attention_reference(q, k, v, s, causal)[0]
             errs = [cs._rel_err(got, want)]
-        elif name.startswith("dq"):
+        elif kind == "dq":
             got = fa.flash_bwd_dq(q, k, v, lse, do, delta, s, causal)
             want = fa.flash_bwd_dq_reference(q, k, v, lse, do, delta, s,
                                              causal)
@@ -178,35 +225,36 @@ def _check(name: str) -> float:
             errs = [cs._rel_err(g, w) for g, w in zip(got, want)]
         torch.cuda.synchronize()
         worst = max(worst, *errs)
-    if not worst <= cs.KERNEL_TOL["bfloat16"]:
+    if not worst <= cs.KERNEL_TOL[dtype]:
         raise AssertionError(f"{name} off its plain version: {worst}")
     return worst
 
 
 def _timings(libs: dict) -> dict:
-    """Each variant's ms at the flagship shape, in turns (forward,
-    dK/dV and dQ variants each with their own kind)."""
+    """Each variant's ms at the flagship shape in its dtype, in turns
+    (forward, dK/dV and dQ variants each with their own kind)."""
     import torch
 
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
 
     B, S, H, D = 8, 2048, 8, 64
-    q, k, v, do, lse, delta = cs._bwd_inputs(B, S, H, H, D, torch.bfloat16,
-                                             None, False, 4321)
-    calls = {
-        "fwd": lambda: fa.flash_forward(q, k, v),
-        "dkdv": lambda: fa.flash_bwd_dkdv(q, k, v, lse, do, delta,
-                                          D ** -0.5, False),
-        "dq": lambda: fa.flash_bwd_dq(q, k, v, lse, do, delta, D ** -0.5,
-                                      False),
-    }
+    calls = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do, lse, delta = cs._bwd_inputs(
+            B, S, H, H, D, getattr(torch, dtype), None, False, 4321)
+        args = (q, k, v, lse, do, delta, D ** -0.5, False)
+        calls[dtype] = {
+            "fwd": lambda q=q, k=k, v=v: fa.flash_forward(q, k, v),
+            "dkdv": lambda args=args: fa.flash_bwd_dkdv(*args),
+            "dq": lambda args=args: fa.flash_bwd_dq(*args),
+        }
     times = {name: [] for name in libs}
     names = list(libs)
     for order in (names, names[::-1], names):
         for name in order:
+            kind, dtype = _kind(name)
             with Swapped(VARIANTS[name][0], libs[name]):
-                times[name].append(cs.cuda_ms(calls[name.split("_")[0]],
-                                              iters=30))
+                times[name].append(cs.cuda_ms(calls[dtype][kind], iters=30))
     return times
 
 
@@ -293,18 +341,20 @@ def _mixed(fwd: str, bwd: str):
         q, k, v, scale, causal)
 
 
-def _step_reading(train, plain16, attention=None) -> dict:
-    """One flagship bf16 step against the plain step (_grad_err)."""
+def _step_reading(train, plain, attention=None,
+                  dtype: str = "bfloat16") -> dict:
+    """One flagship step in ``dtype`` against the plain step ``plain``
+    (_grad_err)."""
     from distributed_machine_learning_tpu_torch.models import layers
 
     saved = layers.flash_attention
     if attention is not None:
         layers.flash_attention = attention
     try:
-        grads = cs._step_grads(train, "bfloat16")
+        grads = cs._step_grads(train, dtype)
     finally:
         layers.flash_attention = saved
-    err = cs._grad_err(grads, plain16)
+    err = cs._grad_err(grads, plain)
     return {k: err[k] for k in ("worst", "param", "whole")}
 
 
@@ -389,11 +439,19 @@ def main() -> int:
         cs.emit("study_per_call", forward=name, **_per_call(calls, forward))
     for name, lib in libs.items():
         source = VARIANTS[name][0]
+        kind, dtype = _kind(name)
         with Swapped(source, lib):
-            extra = (_per_call(calls, kernel) if source == "flash_fwd"
-                     else {})
+            if dtype == "float32":
+                step = _step_reading(train, plain32, dtype=dtype)
+                if not step["worst"] <= cs.STEP_TOL[dtype]:
+                    raise AssertionError(f"{name}: f32 step {step} (tol "
+                                         f"{cs.STEP_TOL[dtype]})")
+                extra = {}
+            else:
+                step = _step_reading(train, plain16)
+                extra = _per_call(calls, kernel) if kind == "fwd" else {}
             cs.emit("study_variant", variant=name, ms=times[name],
-                    step=_step_reading(train, plain16), **extra)
+                    step=step, **extra)
     for fwd, bwd in (("kernel", "plain"), ("plain", "kernel"),
                      ("rounded", "plain"), ("plain", "rounded")):
         cs.emit("study_step", run=f"forward_{fwd}+backward_{bwd}",

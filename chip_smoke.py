@@ -22,8 +22,13 @@ nonzero; nothing is caught and passed over):
    timed at the flagship training shape, where both bf16 kernels are
    also rerun and must give the same bits; then B*H = 65544 through all
    three kernels in f32 and bf16 (the grid's batch x heads axis past
-   65535).  kernel_f32 — the f32 instantiations of all three kernels
-   held against their plain versions and timed at the flagship shape.
+   65535).  kernel_f32 — the f32 kernels (forward and dK/dV as
+   split-precision tensor-core kernels, dQ on the CUDA cores) held against
+   their plain versions and timed at the flagship shape beside the plain
+   versions and SDPA in f32, with their registers, spills and HGMMA
+   counts and a bit-identical rerun of dK/dV; then all three and SDPA
+   timed at the README quickstart's shapes (batch 32, S = 50, D = 8, 32,
+   128).
 4. serve  — the bench flagship transformer (d_model 512, 8 heads, 4
    layers, seq 2048, bf16, flash attention) written as a bundle with
    seeded weights, loaded back and served over HTTP by the port's
@@ -41,7 +46,8 @@ nonzero; nothing is caught and passed over):
    both checks; one step's device time split by kernel (torch.profiler,
    four profiles behind a discarded warm-up step each, two of which must
    agree on every kernel's count) and its device idle share (CUDA
-   events).
+   events); the same profile of one f32 step (``train_f32_step``), which
+   must run the f32 tensor-core forward and dK/dV kernels.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -62,9 +68,13 @@ import urllib.request
 import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense FLOP/s
-# per input type (bf16 on the tensor cores, f32 on the CUDA cores).
+# per input type (bf16 on the tensor cores, f32 on the CUDA cores).  The
+# f32 tensor-core kernels take each f32 product as three bf16 products
+# (the split of csrc/hopper.cuh), so their f32 work runs at most at a
+# third of the bf16 rate.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              "float32_split": 989e12 / 3}
 
 FLAGSHIP = {
     "model": "transformer", "d_model": 512, "num_heads": 8, "num_layers": 4,
@@ -108,6 +118,28 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float | None:
+    """Device time of one ``fn()``: the device time of every kernel it
+    launches (torch.profiler) over ``iters`` calls, over ``iters``; None
+    (not measured) when the profile holds no device event, as one has.
+    At small shapes the host takes longer to launch a call than the
+    device to run it, and cuda_ms of back-to-back calls then times the
+    host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / iters if busy_us > 0 else None
+
+
 # -- phase 1 ----------------------------------------------------------------
 
 
@@ -133,10 +165,11 @@ def phase_build():
         if idle:
             raise AssertionError(f"build: no HGMMA in the tensor-core "
                                  f"kernels {idle}")
-    # The tensor-core kernels keep everything in registers up to D = 128
-    # (their first template argument is the head-dim bucket).
+    # The tensor-core kernels (bf16 and f32) keep everything in registers
+    # up to D = 128 (their first template argument is the head-dim
+    # bucket).
     spilled = {k: r for n in names for k, r in ptxas[n].items()
-               if (m := re.search(r"_wgmma<(\d+),", k))
+               if (m := re.search(r"_wgmma(?:_f32)?<(\d+),", k))
                and int(m.group(1)) <= 128 and r.get("spill_bytes") != 0}
     if spilled:
         raise AssertionError(f"build: tensor-core kernels spill at D <= 128: "
@@ -145,6 +178,7 @@ def phase_build():
          ptxas=ptxas, tensor_cores=tensor_cores,
          tensor_cores_note=None if all(tensor_cores.values()) else
          "null: the toolkit has no cuobjdump")
+    return ptxas, tensor_cores
 
 
 def _ptxas_by_kernel(log: str) -> dict:
@@ -233,17 +267,18 @@ def _rel_err(got, want) -> float:
     return (got.float() - want).abs().max().item() / (top if top > 0 else 1.0)
 
 
-# Relative to the largest entry (_rel_err).  f32: the kernels (CUDA-core
-# FMAs) and the plain versions differ only in summation order, ~1e-6.
-# bf16: both sides accumulate in f32 and round each output entry to bf16
-# once, at most one bf16 ulp apart, at most 2**-7 = 7.8e-3 of the largest
-# entry.  The tensor-core kernels round where the plain versions do not:
-# the forward carries P into P V as two bf16 parts (high and the rounded
-# rest, P to about 2**-16), the dK/dV kernel rounds P^T and dS^T to bf16
-# before P^T dO and dS^T Q, and the dQ kernel rounds dS to bf16 before
-# dS K (relative 2**-9 per entry, averaging out over the S terms of each
-# sum).  2e-2 leaves room for these, and a kernel off by 3 % everywhere
-# fails.
+# Relative to the largest entry (_rel_err).  f32: the forward and dK/dV kernels
+# take each product as three bf16 products of split parts, every operand to
+# 2**-16 (csrc/hopper.cuh), and read 1e-5 to 4e-5; the dQ kernel (CUDA-core
+# FMAs) differs from its plain version only in summation order, ~1e-6.  bf16:
+# both sides accumulate in f32 and round each output entry to bf16 once, at
+# most one bf16 ulp apart, at most 2**-7 = 7.8e-3 of the largest entry.  The
+# tensor-core kernels round where the plain versions do not: the forward
+# carries P into P V as two bf16 parts (high and the rounded rest, P to about
+# 2**-16), the dK/dV kernel rounds P^T and dS^T to bf16 before P^T dO and dS^T
+# Q, and the dQ kernel rounds dS to bf16 before dS K (relative 2**-9 per entry,
+# averaging out over the S terms of each sum).  2e-2 leaves room for these, and
+# a kernel off by 3 % everywhere fails.
 KERNEL_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
@@ -504,75 +539,156 @@ def _grid_past_65535() -> dict:
             "max_rel_err": readings}
 
 
-def phase_kernel_f32():
-    """The f32 instantiations of the three kernels (CUDA-core FMAs) at the
-    flagship shape: held against their plain versions and timed beside
-    them and the library call, bound at the f32 CUDA-core peak."""
+# The f32 kernels as ptxas and cuobjdump name their instantiations: the
+# forward and dK/dV on the tensor cores (split bf16), dQ on the CUDA cores.
+F32_KERNELS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel_wgmma_f32<"),
+               "flash_bwd_dkdv": ("flash_bwd",
+                                  "flash_bwd_dkdv_kernel_wgmma_f32<"),
+               "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_kernel<f32,")}
+# The rate that bounds each f32 kernel: the split's third of the bf16
+# tensor-core peak, or the f32 CUDA-core peak.
+F32_RATE = {"flash_fwd": "float32_split", "flash_bwd_dkdv": "float32_split",
+            "flash_bwd_dq": "float32"}
+
+
+def _f32_build(build) -> dict:
+    """{kernel: {instantiation: registers, spill bytes and HGMMA count}}
+    of the f32 kernels, from phase_build's readings (HGMMA None where the
+    toolkit has no cuobjdump)."""
+    ptxas, tensor_cores = build
+    out = {}
+    for name, (source, prefix) in F32_KERNELS.items():
+        sass = tensor_cores.get(source)
+        out[name] = {
+            k: {**r, "HGMMA": None if sass is None else
+                sass["by_kernel"].get(k, {}).get("HGMMA", 0)}
+            for k, r in ptxas[source].items() if k.startswith(prefix)}
+    return out
+
+
+def _f32_timing(name, kernel, plain, library, flops, nbytes, iters) -> dict:
+    """``kernel`` timed beside ``plain`` and ``library``, with its bound
+    at its own rate (F32_RATE) and at the f32 CUDA-core peak."""
+    ms = cuda_ms(kernel, iters=iters, warmup=1)
+    bound = _bound(flops, nbytes, F32_RATE[name])
+    cuda_core = _bound(flops, nbytes, "float32")["bound_ms"]
+    return {"ms": ms, "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+            "library_ms": cuda_ms(library, iters=iters, warmup=1),
+            **bound, "bound_share": bound["bound_ms"] / ms,
+            "cuda_core_bound_ms": cuda_core,
+            "cuda_core_bound_share": cuda_core / ms,
+            "gflop": flops / 1e9, "tflops": flops / (ms * 1e-3) / 1e12}
+
+
+def _f32_calls(B, S, H, D, seed):
+    """(readings against the plain versions, {kernel: (kernel call, plain
+    call, library call, flops, bytes)}, dK/dV output) for f32 inputs of
+    one shape: the library call is SDPA's forward, or its backward
+    (``autograd.grad``) for the gradients the kernel computes."""
     import torch
     import torch.nn.functional as F
 
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
 
-    B, S, H, D = 8, FLAGSHIP["max_seq_length"], FLAGSHIP["num_heads"], 64
-    dtype, s = torch.float32, D ** -0.5
-    q, k, v, do, lse, delta = _bwd_inputs(B, S, H, H, D, dtype, None, False,
-                                          4322)
+    s = D ** -0.5
+    q, k, v, do, lse, delta = _bwd_inputs(B, S, H, H, D, torch.float32,
+                                          None, False, seed)
     args = (q, k, v, lse, do, delta, s, False)
-    # (kernel outputs, plain outputs) per kernel.
+    dkdv = fa.flash_bwd_dkdv(*args)
     pairs = {
         "flash_fwd": ((fa.flash_forward(q, k, v),),
                       fa.flash_attention_reference(q, k, v, s, False)[:1]),
-        "flash_bwd_dkdv": (fa.flash_bwd_dkdv(*args),
-                           fa.flash_bwd_dkdv_reference(*args)),
+        "flash_bwd_dkdv": (dkdv, fa.flash_bwd_dkdv_reference(*args)),
         "flash_bwd_dq": ((fa.flash_bwd_dq(*args),),
                          (fa.flash_bwd_dq_reference(*args),)),
     }
     torch.cuda.synchronize()
     rel = {n: max(_rel_err(a, b) for a, b in zip(*p)) for n, p in pairs.items()}
-    if not max(rel.values()) <= KERNEL_TOL["float32"]:
-        raise AssertionError(f"f32 kernels at the flagship shape: rel err "
-                             f"{rel} (tol {KERNEL_TOL['float32']})")
     abs_err = {n: max((a - b).abs().max().item() for a, b in zip(*p))
                for n, p in pairs.items()}
+    if not max(rel.values()) <= KERNEL_TOL["float32"]:
+        raise AssertionError(f"f32 kernels at [B, S, H, D] = "
+                             f"{[B, S, H, D]}: rel err {rel} (tol "
+                             f"{KERNEL_TOL['float32']})")
     del pairs
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
     dot = do.transpose(1, 2)
+    tensor = q.numel() * q.element_size()
+    rows = B * H * S * 4
     calls = {
         "flash_fwd": (lambda: fa.flash_forward(q, k, v),
                       lambda: fa.flash_attention_reference(q, k, v, s, False),
-                      lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                      lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                      4.0 * B * H * S * S * D, 4 * tensor + rows),
         "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(*args),
                            lambda: fa.flash_bwd_dkdv_reference(*args),
                            lambda: torch.autograd.grad(
-                               sdpa_out, (kt, vt), dot, retain_graph=True)),
+                               sdpa_out, (kt, vt), dot, retain_graph=True),
+                           8.0 * B * H * S * S * D, 6 * tensor + 2 * rows),
         "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args),
                          lambda: fa.flash_bwd_dq_reference(*args),
                          lambda: torch.autograd.grad(
-                             sdpa_out, (qt,), dot, retain_graph=True)),
+                             sdpa_out, (qt,), dot, retain_graph=True),
+                         6.0 * B * H * S * S * D, 5 * tensor + 2 * rows),
     }
-    flops = {"flash_fwd": 4.0 * B * H * S * S * D,
-             "flash_bwd_dkdv": 8.0 * B * H * S * S * D,
-             "flash_bwd_dq": 6.0 * B * H * S * S * D}
-    tensor = q.numel() * q.element_size()
-    rows = B * H * S * 4
-    nbytes = {"flash_fwd": 4 * tensor + rows,  # q, k, v in; O, lse out
-              "flash_bwd_dkdv": 6 * tensor + 2 * rows,
-              "flash_bwd_dq": 5 * tensor + 2 * rows}
+    return {"rel": rel, "abs": abs_err}, calls, (args, dkdv)
+
+
+# The README quickstart's attention (README.md:39-64): batch 32, seq 50,
+# d_model in {64, 128, 256} over num_heads in {2, 4, 8}, non-causal; one
+# (d_model, num_heads) pair for each head dim 8, 32 and 128.
+QUICKSTART = ((64, 8), (128, 4), (256, 2))
+
+
+def phase_kernel_f32(build):
+    """The f32 kernels at the flagship shape: the forward and dK/dV
+    (split-precision tensor-core kernels) and dQ (CUDA cores) held against
+    their plain versions, dK/dV rerun for identical bits, and each timed
+    beside its plain version and SDPA in f32; bound at its own rate
+    (F32_RATE), with the share of the f32 CUDA-core bound beside it (what
+    earlier readings used).  Then the same at the quickstart's shapes,
+    where the kernel's and SDPA's device times (device_ms) stand beside
+    the times of back-to-back calls, which there are the host's."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = 8, FLAGSHIP["max_seq_length"], FLAGSHIP["num_heads"], 64
+    err, calls, (args, (dk, dv)) = _f32_calls(B, S, H, D, 4322)
+    # No atomics: a rerun gives the same bits.
+    dk2, dv2 = fa.flash_bwd_dkdv(*args)
+    rerun = max((dk2 - dk).abs().max().item(), (dv2 - dv).abs().max().item())
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"f32 flash_bwd_dkdv: a rerun differs by {rerun}")
+    del dk, dv, dk2, dv2
     timing = {}
-    for name, (kernel, plain, library) in calls.items():
-        ms = cuda_ms(kernel, iters=5, warmup=1)
+    for name, (kernel, plain, library, flops, nbytes) in calls.items():
         timing[name] = {
-            "ms": ms, "plain_ms": cuda_ms(plain, iters=3, warmup=1),
-            "library_ms": cuda_ms(library, iters=5, warmup=1),
-            **_bound(flops[name], nbytes[name], "float32"),
-            "max_abs_err": abs_err[name], "max_rel_err": rel[name],
-            "gflop": flops[name] / 1e9,
-            "tflops": flops[name] / (ms * 1e-3) / 1e12,
+            **_f32_timing(name, kernel, plain, library, flops, nbytes, 5),
+            "max_abs_err": err["abs"][name], "max_rel_err": err["rel"][name],
         }
+    del calls, args
+    quickstart = []
+    for d_model, heads in QUICKSTART:
+        shape = [32, 50, heads, d_model // heads]
+        err, calls, _ = _f32_calls(*shape, seed=50 + d_model)
+        quickstart.append({
+            "d_model": d_model, "num_heads": heads, "shape": shape,
+            "max_rel_err": err["rel"],
+            **{name: {**{k: v for k, v in _f32_timing(
+                name, kernel, plain, library, flops, nbytes, 50).items()
+                if k in ("ms", "library_ms", "plain_ms", "bound_ms")},
+                "device_ms": device_ms(kernel, 20),
+                "library_device_ms": device_ms(library, 20)}
+               for name, (kernel, plain, library, flops, nbytes)
+               in calls.items()}})
+        del calls
     emit("kernel_f32", card=torch.cuda.get_device_name(0),
-         shape=[B, S, H, D], dtype="float32", **timing)
+         shape=[B, S, H, D], dtype="float32",
+         dkdv_rerun_max_abs_diff=rerun, build=_f32_build(build),
+         quickstart=quickstart, **timing)
     return timing
 
 
@@ -924,9 +1040,10 @@ PLANTED_FAULTS = {"dq_x0.9": {"dq": 0.9}, "dk_x0.9": {"dk": 0.9},
 STEP_FAULTS = ("dq_x0.9", "dk_x0.9", "dv_x0.9")
 # Whole-step limits on the kernel step against the plain one, per
 # parameter (_grad_err's ``worst``), set from readings on an H100 80GB
-# HBM3 (PERF.md).  f32: the paths differ in summation order only and read
-# 4.9e-6.  bf16: on the step's own activations the backward kernels agree
-# bit for bit with their plain version and the forward within one ulp,
+# HBM3 (PERF.md).  f32: the paths differ by the split products of the
+# forward and dK/dV kernels and in summation order, and read 1.7e-5.
+# bf16: on the step's own activations the backward kernels agree bit for
+# bit with their plain version and the forward within one ulp,
 # but those one-ulp differences, carried through four bf16 layers and the
 # backward, move one parameter's gradient by up to 6.5e-2; the in-model
 # check is the tight bf16 gate.  0.09 lies between that and the 0.116 to
@@ -963,9 +1080,24 @@ def _grad_check(train) -> dict:
     return out
 
 
-def _profile_step(train) -> dict:
-    """One flagship training step (forward, backward, adam update) split
-    by device kernel (torch.profiler; kernel times are device times).
+# The kernel each flash group of a step must run, by compute dtype, as
+# (what its name holds, what it must not hold): every bf16 kernel on the
+# tensor cores; the f32 forward and dK/dV on the tensor cores as split
+# bf16, dQ on the CUDA cores.
+STEP_KERNELS = {
+    "bfloat16": {"flash_fwd": ("flash_fwd_kernel_wgmma", "_f32"),
+                 "flash_bwd_dkdv": ("flash_bwd_dkdv_kernel_wgmma", "_f32"),
+                 "flash_bwd_dq": ("flash_bwd_dq_kernel_wgmma", "_f32")},
+    "float32": {"flash_fwd": ("flash_fwd_kernel_wgmma_f32", None),
+                "flash_bwd_dkdv": ("flash_bwd_dkdv_kernel_wgmma_f32", None),
+                "flash_bwd_dq": ("flash_bwd_dq_kernel", "_wgmma")},
+}
+
+
+def _profile_step(train, compute_dtype: str = "bfloat16") -> dict:
+    """One flagship training step (forward, backward, adam update) in
+    ``compute_dtype`` split by device kernel (torch.profiler; kernel times
+    are device times).
 
     The step is profiled four times, each profile tracing one warm-up
     step that it discards before the step it keeps (an event at the edge
@@ -975,7 +1107,8 @@ def _profile_step(train) -> dict:
     and each flash group shows the launches its wrapper counted; at least
     two must be.  The breakdown is the first complete profile's.  The
     step's device span (CUDA events around unprofiled steps) gives the
-    device's idle share within the step."""
+    device's idle share within the step.  Each flash group must have run
+    the kernels of ``compute_dtype`` (STEP_KERNELS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -991,7 +1124,7 @@ def _profile_step(train) -> dict:
         make_epoch_fn,
     )
 
-    model, x, y = _flagship_step_setup(train)
+    model, x, y = _flagship_step_setup(train, compute_dtype)
     tx = make_injected_optimizer("adam", get_schedule("constant",
                                                       learning_rate=1.0))
     opt = set_injected_hyperparams(tx.init(dict(model.named_parameters())),
@@ -1040,10 +1173,12 @@ def _profile_step(train) -> dict:
             f"events {totals}, missing {missing}, flash groups "
             f"{[(r[3], r[4]) for r in runs]}")
     step_ms, by_kernel, counts, group_counts, _ = complete[0]
-    dq_kernels = [k for k in counts if "flash_bwd_dq_kernel" in k]
-    if not all("flash_bwd_dq_kernel_wgmma" in k for k in dq_kernels):
-        raise AssertionError(f"train: the bf16 step ran dQ through "
-                             f"{dq_kernels}, not the tensor-core kernel")
+    for group, (kernel, other) in STEP_KERNELS[compute_dtype].items():
+        ran = [k for k in counts if f"{group}_kernel" in k]
+        if not ran or not all(kernel in k and (other is None or other not in k)
+                              for k in ran):
+            raise AssertionError(f"train: the {compute_dtype} step ran "
+                                 f"{group} through {ran}, not {kernel}")
     groups = {g: 0.0 for g in (*names, "other")}
     for key, ms in by_kernel.items():
         groups[next((g for g in names if f"{g}_kernel" in key),
@@ -1131,6 +1266,7 @@ def phase_train():
         raise AssertionError(f"train: the bf16 step limit passes the "
                              f"planted faults {missed}: {grads}")
     profile = _profile_step(train)
+    profile_f32 = _profile_step(train, "float32")
     epoch_s = sum(r["epoch_time_s"] for r in records)
     emit("train", card=torch.cuda.get_device_name(0),
          config={k: TRAIN[k] for k in ("d_model", "num_heads", "num_layers",
@@ -1142,7 +1278,9 @@ def phase_train():
          steps=steps, steps_per_s=steps / epoch_s,
          launches=launches, grad_rel_err=grads,
          train_s=train_s, **profile, total_s=time.monotonic() - t_start)
-    return launches
+    emit("train_f32_step", card=torch.cuda.get_device_name(0),
+         config=dict(TRAIN, compute_dtype="float32"), **profile_f32)
+    return launches, profile_f32["step_launches_by_group"]
 
 
 def main() -> int:
@@ -1156,13 +1294,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
+    build = phase_build()
     timings = {"flash_fwd": phase_kernel(), **phase_kernel_bwd()}
-    timings_f32 = phase_kernel_f32()
+    timings_f32 = phase_kernel_f32(build)
     phase_serve("serve", FLAGSHIP, FLAGSHIP["max_seq_length"],
                 n_requests=32, atol=3e-2)
     phase_serve("serve_gqa", GQA_ROPE, 96, n_requests=16, atol=2e-4)
-    launches = phase_train()
+    launches, launches_f32 = phase_train()
 
     sources = {
         "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
@@ -1182,11 +1320,16 @@ def main() -> int:
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},
             "bound_share": t["bound_ms"] / t["ms"],
-            # The same kernel's f32 (CUDA-core) instantiation, not on the
-            # bf16 main path; its bound at the f32 CUDA-core peak.
-            "f32": {k: timings_f32[name][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "tflops")},
+            # The same function's f32 kernel (the forward and dK/dV on the
+            # tensor cores as split bf16, dQ on the CUDA cores), launched
+            # by the profiled f32 step; its bound at its own rate
+            # (F32_RATE), and its share of the f32 CUDA-core bound.
+            "f32": {"kernel": F32_KERNELS[name][1].rstrip("<,"),
+                    "launches_f32_step": launches_f32[name],
+                    **{k: timings_f32[name][k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "tflops", "bound_share",
+                        "cuda_core_bound_share")}},
         })
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,10 +26,10 @@
 // The causal liveness rule is the TPU kernels': a (q tile, kv tile) pair
 // is computed iff k_start <= q_start + block_q - 1.
 //
-// Bound.  At the flagship training shape (B=8, S=2048, H=8, D=64, bf16,
+// Bound.  At the flagship training shape (B=8, S=2048, H=8, D=64,
 // non-causal) dkdv does 8*B*H*S^2*D = 137 GFLOP and dq 6*B*H*S^2*D =
-// 103 GFLOP against ~0.1 GB of tensor traffic: both are bound by
-// operations.
+// 103 GFLOP against ~0.1 GB (bf16) or ~0.2 GB (f32) of tensor traffic:
+// both are bound by operations.
 //
 // bf16 dkdv: `flash_bwd_dkdv_kernel_wgmma`, on the tensor cores.  Two
 // warpgroups; each owns 64 kv rows (or, at D > 64, the same 64 rows and
@@ -65,11 +65,22 @@
 // nothing is transposed; dQ accumulates in f32 registers and is written
 // once.  No atomics: a rerun gives the same bits.
 //
-// f32 dkdv and dq: CUDA-core FMAs from tiles staged in shared memory as
-// f32 (Hopper's tensor cores take f32 only as tf32, which would not hold
-// f32 precision), reading every tensor through its element strides
-// (autograd may hand in an expanded dO with stride 0) and masking the
-// ragged edges of S and D, so any layout and any D in 1..256 work.
+// f32 dkdv: `flash_bwd_dkdv_kernel_wgmma_f32`, the bf16 dkdv design on
+// the tensor cores with every operand split into bf16 high and low tiles
+// (hopper.cuh, kSplitParts = 2): each of S^T = K Q^T, dP^T = V dO^T,
+// dV += P^T dO and dK += dS^T Q is three bf16 wgmmas (hi hi + hi lo + lo
+// hi), P^T and dS^T split in registers, so every operand enters to about
+// 2^-16 and the result stays within the f32 tolerance (a single tf32 or
+// bf16 product would not).  K and V are split once from global memory;
+// each step's Q and dO land by cp.async in f32 staging tiles while the
+// previous step computes, and one pass splits them.  The q tile is 32
+// rows at D = 128 and 16 at D = 256 (registers, shared memory).  No
+// atomics.  The wrapper hands in conforming rows, as for bf16.
+//
+// f32 dq: CUDA-core FMAs from tiles staged in shared memory as f32,
+// reading every tensor through its element strides (autograd may hand in
+// an expanded dO with stride 0) and masking the ragged edges of S and D,
+// so any layout and any D in 1..256 work.
 //
 // Grid.  Every launch puts the (b, head) index on gridDim.x and the tile
 // on gridDim.y (hopper.cuh: kMaxGridX, kMaxGridY), so B*H is not capped
@@ -208,136 +219,6 @@ __device__ __forceinline__ void recompute(
 }
 
 template <int DMAX, int BQ, int BK>
-constexpr size_t dkdv_smem_bytes() {
-  // sKT, sVT [DMAX][BK+4]; sQT, sdOT [DMAX][BQ+4]; sP, sdS [BQ][BK+4];
-  // lse, delta [BQ].
-  return sizeof(float) * (size_t)(2 * DMAX * (BK + 4) + 2 * DMAX * (BQ + 4) +
-                                  2 * BQ * (BK + 4) + 2 * BQ);
-}
-
-template <typename T, int DMAX, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta, T* __restrict__ dk,
-                          T* __restrict__ dv, int S, int H, int Hkv, int D,
-                          Strides qs, Strides ks, Strides vs, Strides dos,
-                          float scale, int causal) {
-  constexpr int RQ = BQ / kRowGroups;   // q rows per thread (scores)
-  constexpr int CS = BK / kColGroups;   // kv columns per thread (scores)
-  constexpr int RK = BK / kRowGroups;   // kv rows per thread (dK, dV)
-  constexpr int CO = DMAX / kColGroups; // head-dim columns per thread
-  constexpr int QP = BQ + 4;
-  constexpr int KP = BK + 4;
-  static_assert(RQ >= 1 && CS >= 1 && RK >= 1 && CO >= 1, "tile too small");
-
-  extern __shared__ float4 smem4[];
-  float* sKT = reinterpret_cast<float*>(smem4);  // [DMAX][KP]
-  float* sVT = sKT + DMAX * KP;                  // [DMAX][KP]
-  float* sQT = sVT + DMAX * KP;                  // [DMAX][QP]
-  float* sdOT = sQT + DMAX * QP;                 // [DMAX][QP]
-  float* sP = sdOT + DMAX * QP;                  // [BQ][KP]
-  float* sdS = sP + BQ * KP;                     // [BQ][KP]
-  float* s_lse = sdS + BQ * KP;                  // [BQ]
-  float* s_delta = s_lse + BQ;                   // [BQ]
-
-  const int tid = threadIdx.x;
-  const int rg = tid / kColGroups;
-  const int cg = tid % kColGroups;
-  const int bkv = blockIdx.x;  // b * Hkv + kv_head
-  const int b = bkv / Hkv;
-  const int hk = bkv % Hkv;
-  const int group = H / Hkv;
-  const int k0 = blockIdx.y * BK;
-
-  stage_transposed<T, DMAX>(sKT, KP, k + b * ks.b + hk * ks.h, ks, k0, BK, S,
-                            D);
-  stage_transposed<T, DMAX>(sVT, KP, v + b * vs.b + hk * vs.h, vs, k0, BK, S,
-                            D);
-
-  // This thread's dK, dV rows rg*RK + i, head-dim columns cg + 8*j (the
-  // interleave keeps the strided sQT/sdOT reads below free of bank
-  // conflicts).
-  float acc_k[RK][CO], acc_v[RK][CO];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int j = 0; j < CO; ++j) {
-      acc_k[i][j] = 0.f;
-      acc_v[i][j] = 0.f;
-    }
-
-  const int nq = (S + BQ - 1) / BQ;
-  // Causal: q tile t is live iff t*BQ + BQ - 1 >= k0, i.e. t >= k0 / BQ.
-  const int t0 = causal ? k0 / BQ : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* dob = dout + b * dos.b + h * dos.h;
-    const float* lse_row = lse + (long long)(b * H + h) * S;
-    const float* delta_row = delta + (long long)(b * H + h) * S;
-    for (int t = t0; t < nq; ++t) {
-      const int q0 = t * BQ;
-      __syncthreads();  // the previous tile's readers are done
-      stage_transposed<T, DMAX>(sQT, QP, qb, qs, q0, BQ, S, D);
-      stage_transposed<T, DMAX>(sdOT, QP, dob, dos, q0, BQ, S, D);
-      stage_rows(s_lse, s_delta, lse_row, delta_row, q0, BQ, S);
-      __syncthreads();
-
-      float p[RQ][CS], ds[RQ][CS];
-      recompute<DMAX, RQ, CS>(sQT, sdOT, QP, sKT, sVT, KP, s_lse, s_delta,
-                              rg, cg, q0, k0, S, scale, causal, p, ds);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CS; ++j) {
-          sP[(rg * RQ + i) * KP + cg * CS + j] = p[i][j];
-          sdS[(rg * RQ + i) * KP + cg * CS + j] = ds[i][j];
-        }
-      __syncthreads();
-
-      // dV += P^T dO and dK += dS^T Q over the tile's q rows.
-#pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float pr[RK], dsr[RK];
-        load_vec<RK>(sP + r * KP + rg * RK, pr);
-        load_vec<RK>(sdS + r * KP + rg * RK, dsr);
-        float dov[CO], qv[CO];
-#pragma unroll
-        for (int j = 0; j < CO; ++j) {
-          dov[j] = sdOT[(cg + kColGroups * j) * QP + r];
-          qv[j] = sQT[(cg + kColGroups * j) * QP + r];
-        }
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int j = 0; j < CO; ++j) {
-            acc_v[i][j] = fmaf(pr[i], dov[j], acc_v[i][j]);
-            acc_k[i][j] = fmaf(dsr[i], qv[j], acc_k[i][j]);
-          }
-      }
-    }
-  }
-
-  // dK, dV: contiguous [B, S, Hkv, D].
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int row = k0 + rg * RK + i;
-    if (row >= S) continue;
-    const long long base = (((long long)b * S + row) * Hkv + hk) * D;
-#pragma unroll
-    for (int j = 0; j < CO; ++j) {
-      const int d = cg + kColGroups * j;
-      if (d < D) {
-        dk[base + d] = from_f32<T>(acc_k[i][j]);
-        dv[base + d] = from_f32<T>(acc_v[i][j]);
-      }
-    }
-  }
-}
-
-template <int DMAX, int BQ, int BK>
 constexpr size_t dq_smem_bytes() {
   // sQT, sdOT [DMAX][BQ+4]; sKT, sVT [DMAX][BK+4]; sdST [BK][BQ+4];
   // lse, delta [BQ].
@@ -453,23 +334,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-template <typename T, int DMAX, int BQ, int BK>
-cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = dkdv_smem_bytes<DMAX, BQ, BK>();
-  auto kern = flash_bwd_dkdv_kernel<T, DMAX, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.Hkv, (a.S + BK - 1) / BK);
-  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.H, a.Hkv,
-      a.D, a.qs, a.ks, a.vs, a.dos, a.scale, a.causal);
-  return cudaGetLastError();
-}
 
 template <typename T, int DMAX, int BQ, int BK>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
@@ -734,6 +598,244 @@ cudaError_t dispatch_dkdv_wgmma(const Args& a, cudaStream_t st) {
   return launch_dkdv_wgmma<256, 32, 2>(a, st);
 }
 
+// ---- f32 dK/dV on the tensor cores, as split bf16 -------------------------
+
+template <int DMAX, int BQ, int DSPLIT>
+constexpr size_t dkdv_f32_smem_bytes() {
+  // K and V [BKV x DMAX] and Q and dO [BQ x DMAX] as kSplitParts bf16
+  // tiles each; the f32 staging tiles of Q and dO; STAGES stages of lse
+  // and delta [BQ] f32; plus the slack that aligns the base.
+  return (size_t)2 * hopper::kSplitParts * DMAX *
+             (2 * (128 / DSPLIT) + 2 * BQ) +
+         (size_t)8 * BQ * DMAX + 8 * hopper::STAGES * BQ + 1024;
+}
+
+template <int DMAX, int BQ, int DSPLIT>
+__global__ void __launch_bounds__(256, 1) flash_bwd_dkdv_kernel_wgmma_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int Hkv,
+    int D, Strides qs, Strides ks, Strides vs, Strides dos, float scale,
+    int causal) {
+  using namespace hopper;
+  constexpr int NT = 256;
+  constexpr int BKV = 128 / DSPLIT;  // kv rows per block
+  constexpr int DN = DMAX / DSPLIT;  // dK/dV columns per warpgroup
+  constexpr int NCH = DN < 128 ? DN : 128;  // columns per dK/dV wgmma
+  constexpr int P = kSplitParts;
+  constexpr uint32_t kKVBytes = BKV * DMAX * 2;  // one bf16 part
+  constexpr uint32_t kQBytes = BQ * DMAX * 2;
+  constexpr uint32_t kStageBytes = BQ * DMAX * 4;
+  static_assert(DMAX % 64 == 0 && DN % 64 == 0 && BQ % 16 == 0, "tiles");
+
+  // The parts of K, V, Q and dO (part i of K at sK + i * kKVBytes, ...),
+  // then the f32 staging tiles of Q and dO.
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sV = sK + P * kKVBytes;
+  const uint32_t sQ = sV + P * kKVBytes;
+  const uint32_t sdO = sQ + P * kQBytes;
+  const uint32_t sQf = sdO + P * kQBytes;
+  const uint32_t sdOf = sQf + kStageBytes;
+  // [STAGES][lse, delta][BQ] f32 after the staging tiles.
+  const uint32_t sRows = sdOf + kStageBytes;
+  const float* rows =
+      reinterpret_cast<float*>(smem_raw + (sRows - smem_u32(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int kv_sub = wg / DSPLIT;  // which 64 kv rows
+  const int dpart = wg % DSPLIT;   // which DN columns of dK/dV
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;
+  const int c4 = tid % 4;
+  const int bkv = blockIdx.x;  // b * Hkv + kv_head
+  const int b = bkv / Hkv;
+  const int hk = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.y * BKV;
+  const int kvrow0 = k0 + 64 * kv_sub + 16 * warp + g;  // and kvrow0 + 8
+
+  const int nq = (S + BQ - 1) / BQ;
+  // Causal: q tile t is live iff t*BQ + BQ - 1 >= k0, i.e. t >= k0 / BQ.
+  const int t0 = causal ? k0 / BQ : 0;
+  const int n_t = nq - t0;
+  const int n_it = group * n_t;
+
+  // Q and dO of step `it` (q head hk*group + it / n_t, q tile t0 + it %
+  // n_t) into the staging tiles, lse and delta into stage it % STAGES.
+  auto stage_q_side = [&](int it) {
+    const int st = it % STAGES;
+    const int h = hk * group + it / n_t;
+    const int qt0 = (t0 + it % n_t) * BQ;
+    stage_tile_f32<DMAX, BQ, NT>(sQf, q + b * qs.b + h * qs.h, qs.s, qt0, S,
+                                 D, tid);
+    stage_tile_f32<DMAX, BQ, NT>(sdOf, dout + b * dos.b + h * dos.h, dos.s,
+                                 qt0, S, D, tid);
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ;
+      const float* src = (tid < BQ ? lse : delta) +
+                         (long long)(b * H + h) * S + qt0 + r;
+      const bool ok = qt0 + r < S;
+      cp_async4(sRows + 4 * (st * 2 * BQ + tid), ok ? src : lse, ok);
+    }
+    cp_async_commit();
+  };
+
+  // Step 0 lands while K and V are split.
+  if (n_it > 0) stage_q_side(0);
+  split_tile_global<DMAX, BKV, NT>(sK, k + b * ks.b + hk * ks.h, ks.s, k0,
+                                   S, D, tid);
+  split_tile_global<DMAX, BKV, NT>(sV, v + b * vs.b + hk * vs.h, vs.s, k0,
+                                   S, D, tid);
+
+  float acc_dk[DN / 2], acc_dv[DN / 2];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) {
+    acc_dk[i] = 0.f;
+    acc_dv[i] = 0.f;
+  }
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % STAGES;
+    cp_async_wait<0>();
+    __syncthreads();  // step it is staged; every warpgroup is done with it-1
+    split_tile_staged<DMAX, BQ, NT>(sQ, sQf, tid);
+    split_tile_staged<DMAX, BQ, NT>(sdO, sdOf, tid);
+    fence_proxy_async();
+    __syncthreads();  // the part tiles are visible to wgmma; staging is free
+    if (it + 1 < n_it) stage_q_side(it + 1);
+
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 kv rows: Ki Qj
+    // and Vi dOj over i + j < P.
+    float sT[BQ / 2], dpT[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      sT[i] = 0.f;
+      dpT[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      const uint32_t kv_off = (kk / 4) * BKV * 128 + kv_sub * 64 * 128 +
+                              (kk % 4) * 32;
+      const uint32_t q_off = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int j = 0; i + j < P; ++j) {
+          Wgmma<BQ>::ss(sT, desc_k_major(sK + i * kKVBytes + kv_off),
+                        desc_k_major(sQ + j * kQBytes + q_off),
+                        kk + i + j > 0);
+          Wgmma<BQ>::ss(dpT, desc_k_major(sV + i * kKVBytes + kv_off),
+                        desc_k_major(sdO + j * kQBytes + q_off),
+                        kk + i + j > 0);
+        }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sT);
+    fence_regs(dpT);
+
+    // P^T and dS^T on the fragments, as in the bf16 kernel.
+    const int qt0 = (t0 + it % n_t) * BQ;
+    const float* s_lse = rows + st * 2 * BQ;
+    const float* s_delta = s_lse + BQ;
+    if (qt0 + BQ > S || (causal && k0 + 64 * kv_sub + 63 > qt0))
+      recompute_wgmma<true, BQ>(sT, dpT, s_lse, s_delta, qt0, 2 * c4, kvrow0,
+                                S, causal, sl2, scale);
+    else
+      recompute_wgmma<false, BQ>(sT, dpT, s_lse, s_delta, qt0, 2 * c4,
+                                 kvrow0, S, causal, sl2, scale);
+
+    // dV += P^T dO and dK += dS^T Q: (P^T)i dOj and (dS^T)i Qj over
+    // i + j < P, P^T and dS^T split in registers as the A operands.
+    uint32_t ap[P][BQ / 16][4], ads[P][BQ / 16][4];
+    split_fragments<BQ>(sT, ap);
+    split_fragments<BQ>(dpT, ads);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int nc = 0; nc < DN / NCH; ++nc) {
+        const uint32_t off =
+            kk * 2048 + (dpart * (DN / 64) + nc * (NCH / 64)) * BQ * 128;
+        float(&dv_acc)[NCH / 2] =
+            *reinterpret_cast<float(*)[NCH / 2]>(&acc_dv[nc * NCH / 2]);
+        float(&dk_acc)[NCH / 2] =
+            *reinterpret_cast<float(*)[NCH / 2]>(&acc_dk[nc * NCH / 2]);
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+#pragma unroll
+          for (int j = 0; i + j < P; ++j) {
+            Wgmma<NCH>::rs(dv_acc, ap[i][kk],
+                           desc_mn_major(sdO + j * kQBytes + off, BQ * 128));
+            Wgmma<NCH>::rs(dk_acc, ads[i][kk],
+                           desc_mn_major(sQ + j * kQBytes + off, BQ * 128));
+          }
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+  }
+
+  // dK, dV: contiguous [B, S, Hkv, D].
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kvrow0 + 8 * r;
+    if (row >= S) continue;
+    const long long base = (((long long)b * S + row) * Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j) {
+      const int d = dpart * DN + 8 * j + 2 * c4;
+      if (d < D) {
+        *reinterpret_cast<float2*>(dk + base + d) =
+            make_float2(acc_dk[4 * j + 2 * r], acc_dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + base + d) =
+            make_float2(acc_dv[4 * j + 2 * r], acc_dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int DMAX, int BQ, int DSPLIT>
+cudaError_t launch_dkdv_wgmma_f32(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = dkdv_f32_smem_bytes<DMAX, BQ, DSPLIT>();
+  auto kern = flash_bwd_dkdv_kernel_wgmma_f32<DMAX, BQ, DSPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int BKV = 128 / DSPLIT;
+  const dim3 grid(a.B * a.Hkv, (a.S + BKV - 1) / BKV);
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
+  kern<<<grid, 256, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.S, a.H, a.Hkv, a.D, a.qs, a.ks, a.vs, a.dos, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// f32 dK/dV tiles per head-dim bucket, (block_q, block_k) = (BQ,
+// 128 / DSPLIT); ops/flash_attention.py::BACKWARD_TILES["flash_bwd_dkdv"]
+// ["float32"] mirrors this table.  Shared memory: 130, 130 and 194 KB.
+// At D = 128 the 64-row q tile of bf16 spills (the split's extra A
+// fragments), a 32-row one does not; at D = 256 a 16-row q tile is what
+// fits shared memory.
+cudaError_t dispatch_dkdv_wgmma_f32(const Args& a, cudaStream_t st) {
+  if (!hopper::tensor_core_operand(a.q, a.qs, a.D, 4) ||
+      !hopper::tensor_core_operand(a.k, a.ks, a.D, 4) ||
+      !hopper::tensor_core_operand(a.v, a.vs, a.D, 4) ||
+      !hopper::tensor_core_operand(a.dout, a.dos, a.D, 4))
+    return cudaErrorInvalidValue;
+  if (a.D <= 64) return launch_dkdv_wgmma_f32<64, 64, 1>(a, st);
+  if (a.D <= 128) return launch_dkdv_wgmma_f32<128, 32, 2>(a, st);
+  return launch_dkdv_wgmma_f32<256, 16, 2>(a, st);
+}
+
 // ---- bf16 dQ on the tensor cores -----------------------------------------
 
 template <int DMAX, int BK, int NWG>
@@ -958,23 +1060,15 @@ cudaError_t dispatch_dq_wgmma(const Args& a, cudaStream_t st) {
   return launch_dq_wgmma<256, 32, 1>(a, st);
 }
 
-// CUDA-core tiles per head-dim bucket (dq and dkdv in f32);
-// ops/flash_attention.py::BACKWARD_TILES mirrors this table.  Untuned:
-// the first correct choice that fits shared memory (the largest, D <= 128
-// at 64 x 64, takes 174 KB in dkdv).
-template <typename T, bool DKDV>
-cudaError_t dispatch(const Args& a, cudaStream_t st) {
-  if constexpr (DKDV) {
-    if (a.D <= 32) return launch_dkdv<T, 32, 64, 64>(a, st);
-    if (a.D <= 64) return launch_dkdv<T, 64, 64, 64>(a, st);
-    if (a.D <= 128) return launch_dkdv<T, 128, 64, 64>(a, st);
-    return launch_dkdv<T, 256, 32, 32>(a, st);
-  } else {
-    if (a.D <= 32) return launch_dq<T, 32, 64, 64>(a, st);
-    if (a.D <= 64) return launch_dq<T, 64, 64, 64>(a, st);
-    if (a.D <= 128) return launch_dq<T, 128, 64, 64>(a, st);
-    return launch_dq<T, 256, 32, 32>(a, st);
-  }
+// CUDA-core dq tiles per head-dim bucket (f32);
+// ops/flash_attention.py::BACKWARD_TILES["flash_bwd_dq"]["float32"]
+// mirrors this table.  Untuned: the first correct choice that fits shared
+// memory.
+cudaError_t dispatch_dq_cuda_core(const Args& a, cudaStream_t st) {
+  if (a.D <= 32) return launch_dq<float, 32, 64, 64>(a, st);
+  if (a.D <= 64) return launch_dq<float, 64, 64, 64>(a, st);
+  if (a.D <= 128) return launch_dq<float, 128, 64, 64>(a, st);
+  return launch_dq<float, 256, 32, 32>(a, st);
 }
 
 int check(const Args& a) {
@@ -1004,8 +1098,8 @@ extern "C" {
 // holds 16 element strides, (b, s, h, d) of q, k, v and dout in turn.
 // lse and delta are contiguous [B*H, S] f32; dk and dv are contiguous
 // [B, S, Hkv, D] and dq contiguous [B, S, H, D], in the input dtype.
-// bf16 inputs must satisfy tensor_core_operand (cudaErrorInvalidValue
-// otherwise).
+// Inputs of the tensor-core kernels (dkdv, and dq in bf16) must satisfy
+// tensor_core_operand (cudaErrorInvalidValue otherwise).
 int dml_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int S, int H, int Hkv, int D,
@@ -1016,7 +1110,7 @@ int dml_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   if (int err = check(a)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) return (int)dispatch_dkdv_wgmma(a, st);
-  return (int)dispatch<float, true>(a, st);
+  return (int)dispatch_dkdv_wgmma_f32(a, st);
 }
 
 int dml_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1029,7 +1123,7 @@ int dml_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (int err = check(a)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) return (int)dispatch_dq_wgmma(a, st);
-  return (int)dispatch<float, false>(a, st);
+  return (int)dispatch_dq_cuda_core(a, st);
 }
 
 const char* dml_cuda_error_string(int err) {

@@ -8,9 +8,11 @@
 // dtype and a per-row logsumexp in f32.  Fully masked rows give O = 0 and
 // lse = -inf, as on the TPU.
 //
-// Bound.  At the flagship shape (B=8, S=2048, H=8, D=64, bf16) the work is
-// 4*B*H*S^2*D = 68.7 GFLOP against ~68 MB of tensor traffic: the function
-// is bound by operations, so the tensor cores have to do the products.
+// Bound.  At the flagship shape (B=8, S=2048, H=8, D=64) the work is
+// 4*B*H*S^2*D = 68.7 GFLOP against ~68 MB (bf16) or ~136 MB (f32) of
+// tensor traffic: the function is bound by operations, so the tensor
+// cores have to do the products, in f32 as split bf16 at a third of the
+// bf16 rate.
 //
 // bf16: `flash_fwd_kernel_wgmma`.  One block per (batch*head, q tile of
 // 64 rows per warpgroup); a loop over kv tiles takes the place of the TPU
@@ -30,10 +32,19 @@
 // hands in unit-stride, 16-byte-aligned rows with D a multiple of 8
 // (ops/flash_attention.py pads and copies what does not conform).
 //
-// f32: `flash_fwd_kernel`, CUDA-core FMAs from f32 tiles, so that f32
-// results stay at f32 precision (TF32 tensor cores would not).  Tensors
-// are read through their element strides and the ragged edges of S and D
-// are masked, so any layout, any S and any D in 1..256 work.
+// f32: `flash_fwd_kernel_wgmma_f32`, the same design on the tensor cores
+// with every operand split into bf16 high and low tiles (hopper.cuh,
+// kSplitParts = 2): S = Q K^T is Qhi Khi + Qhi Klo + Qlo Khi and O += P V
+// is Phi Vhi + Phi Vlo + Plo Vhi, three bf16 wgmmas each, so every
+// operand enters its product to about 2^-16 and the result stays within
+// the f32 tolerance (a single tf32 or bf16 product would not).  f32 rows
+// cannot be split on the way through cp.async, so Q is split once from
+// global memory, and each K/V tile lands by cp.async in an f32 staging
+// tile while the previous tile computes, then one pass splits it into
+// the hi/lo tiles (97 KB of shared memory at D <= 64, so two blocks share
+// an SM and one block's split pass overlaps the other's products).  The
+// wrapper hands in unit-stride, 16-byte-aligned rows with D a multiple of
+// 8, as for bf16.
 //
 // Measured times sit in PERF.md.
 
@@ -46,248 +57,9 @@
 
 namespace {
 
-constexpr int kColGroups = 8;   // threads sharing one q row group
-constexpr int kRowGroups = 16;  // q row groups per block
-constexpr int kThreads = kColGroups * kRowGroups;
-
 struct Strides {
   long long b, s, h, d;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-
-// N consecutive floats from shared memory, in 16- or 8-byte loads.
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + i);
-      out[i] = t.x;
-      out[i + 1] = t.y;
-      out[i + 2] = t.z;
-      out[i + 3] = t.w;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(p + i);
-      out[i] = t.x;
-      out[i + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = p[i];
-  }
-}
-
-__device__ __forceinline__ float group_max(float x) {
-  // The 8 threads of a row group are 8 consecutive lanes of one warp.
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
-
-template <int DMAX, int BQ, int BK>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(DMAX * (BQ + 4) + DMAX * (BK + 4) +
-                                  BK * DMAX + BK * (BQ + 4));
-}
-
-template <typename T, int DMAX, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int Hkv, int D,
-                     Strides qs, Strides ks, Strides vs, float scale,
-                     int causal) {
-  constexpr int R = BQ / kRowGroups;    // q rows per thread
-  constexpr int CS = BK / kColGroups;   // score columns per thread
-  constexpr int CO = DMAX / kColGroups; // output columns per thread
-  constexpr int QP = BQ + 4;            // padded row of the q^T / p^T tiles
-  constexpr int KP = BK + 4;            // padded row of the k^T tile
-  static_assert(R >= 1 && CS >= 1 && CO >= 1, "tile too small");
-
-  extern __shared__ float4 smem4[];
-  float* sQT = reinterpret_cast<float*>(smem4);  // [DMAX][QP]
-  float* sKT = sQT + DMAX * QP;                  // [DMAX][KP]
-  float* sV = sKT + DMAX * KP;                   // [BK][DMAX]
-  float* sPT = sV + BK * DMAX;                   // [BK][QP]
-
-  const int tid = threadIdx.x;
-  const int rg = tid / kColGroups;
-  const int cg = tid % kColGroups;
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
-  const int q0 = blockIdx.y * BQ;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-
-  // The q tile, transposed and zero-padded past S and D.
-  for (int idx = tid; idx < BQ * DMAX; idx += kThreads) {
-    const int r = idx / DMAX;
-    const int d = idx % DMAX;
-    const int s = q0 + r;
-    float val = 0.f;
-    if (s < S && d < D) val = to_f32(qb[s * qs.s + d * qs.d]);
-    sQT[d * QP + r] = val;
-  }
-
-  float m[R], l[R], acc[R][CO];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CO; ++j) acc[i][j] = 0.f;
-  }
-
-  int n_kv = (S + BK - 1) / BK;
-  if (causal) {
-    // A kv tile is live iff it meets the causal triangle of this q tile.
-    n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
-  }
-
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * DMAX; idx += kThreads) {
-      const int c = idx / DMAX;
-      const int d = idx % DMAX;
-      const int s = k0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (s < S && d < D) {
-        kv = to_f32(kb[s * ks.s + d * ks.d]);
-        vv = to_f32(vb[s * vs.s + d * vs.d]);
-      }
-      sKT[d * KP + c] = kv;
-      sV[c * DMAX + d] = vv;
-    }
-    __syncthreads();
-
-    // Scores for rows rg*R + i and columns cg*CS + j of this tile.
-    float sc[R][CS];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < CS; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DMAX; ++d) {
-      float qr[R], kc[CS];
-      load_vec<R>(sQT + d * QP + rg * R, qr);
-      load_vec<CS>(sKT + d * KP + cg * CS, kc);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < CS; ++j) sc[i][j] = fmaf(qr[i], kc[j], sc[i][j]);
-    }
-
-    // Online softmax, one row at a time, reduced over the row group.
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q0 + rg * R + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        const int col = k0 + cg * CS + j;
-        float x = sc[i][j] * scale;
-        if (col >= S || (causal && col > row)) x = -INFINITY;
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = group_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        const float x = sc[i][j];
-        const float p = isfinite(x) ? expf(x - m_safe) : 0.f;
-        sc[i][j] = p;
-        rs += p;
-      }
-      rs = group_sum(rs);
-      const float corr = isfinite(m[i]) ? expf(m[i] - m_safe) : 0.f;
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CO; ++j) acc[i][j] *= corr;
-    }
-
-#pragma unroll
-    for (int j = 0; j < CS; ++j)
-#pragma unroll
-      for (int i = 0; i < R; ++i) sPT[(cg * CS + j) * QP + rg * R + i] = sc[i][j];
-    __syncthreads();
-
-    // acc += P . V for rows rg*R + i and head-dim columns cg*CO + j.
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pr[R], vr[CO];
-      load_vec<R>(sPT + c * QP + rg * R, pr);
-      load_vec<CO>(sV + c * DMAX + cg * CO, vr);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < CO; ++j) acc[i][j] = fmaf(pr[i], vr[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + rg * R + i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * S + row) * H + h) * (long long)D;
-#pragma unroll
-    for (int j = 0; j < CO; ++j) {
-      const int d = cg * CO + j;
-      if (d < D) orow[d] = from_f32<T>(acc[i][j] / denom);
-    }
-    if (cg == 0) {
-      lse[(long long)bh * S + row] =
-          isfinite(m[i]) ? m[i] + logf(denom) : -INFINITY;
-    }
-  }
-}
-
-template <typename T, int DMAX, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int S, int H, int Hkv, int D,
-                   Strides qs, Strides ks, Strides vs, float scale,
-                   int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DMAX, BQ, BK>();
-  auto kern = flash_fwd_kernel<T, DMAX, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, D, qs,
-      ks, vs, scale, causal);
-  return cudaGetLastError();
-}
 
 // ---- bf16 on the tensor cores -------------------------------------------
 
@@ -520,27 +292,220 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                                   vs, scale, causal, stream);
 }
 
-// ---- f32 dispatch ---------------------------------------------------------
+// ---- f32 on the tensor cores, as split bf16 -------------------------------
 
-// f32 tiles per head-dim bucket; ops/flash_attention.py::KERNEL_TILES
-// ["float32"] mirrors this table.  Untuned: the first correct choice that
-// fits shared memory (the largest, D <= 256, takes 181 KB).
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int B, int S, int H, int Hkv, int D,
-                     Strides qs, Strides ks, Strides vs, float scale,
-                     int causal, cudaStream_t stream) {
-  if (D <= 32)
-    return launch<T, 32, 64, 64>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks,
-                                 vs, scale, causal, stream);
+template <int DMAX, int BK, int NWG>
+constexpr size_t f32_smem_bytes() {
+  // Q [BQ x DMAX] and K, V [BK x DMAX] as kSplitParts bf16 tiles each,
+  // the f32 staging tiles of K and V, and the slack that aligns the base.
+  return (size_t)2 * hopper::kSplitParts * DMAX * (64 * NWG + 2 * BK) +
+         (size_t)8 * BK * DMAX + 1024;
+}
+
+template <int DMAX, int BK, int NWG>
+__global__ void __launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)
+    flash_fwd_kernel_wgmma_f32(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o,
+                               float* __restrict__ lse, int S, int H,
+                               int Hkv, int D, Strides qs, Strides ks,
+                               Strides vs, float scale, int causal) {
+  using namespace hopper;
+  constexpr int BQ = 64 * NWG;
+  constexpr int NT = 128 * NWG;
+  constexpr int NCH = DMAX < 128 ? DMAX : 128;  // O columns per P.V wgmma
+  constexpr int P = kSplitParts;
+  constexpr uint32_t kQBytes = BQ * DMAX * 2;   // one bf16 part
+  constexpr uint32_t kKVBytes = BK * DMAX * 2;
+  constexpr uint32_t kStageBytes = BK * DMAX * 4;
+  static_assert(DMAX % 64 == 0 && BK % 16 == 0, "tiles");
+
+  // The parts of Q, K and V (part i of Q at sQ + i * kQBytes, ...), then
+  // the f32 staging tiles of K and V.
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + P * kQBytes;
+  const uint32_t sV = sK + P * kKVBytes;
+  const uint32_t sKf = sV + P * kKVBytes;
+  const uint32_t sVf = sKf + kStageBytes;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;  // row within the warp's 8-row half
+  const int c4 = tid % 4;        // column pair within an 8-column chunk
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
+  const int q0 = blockIdx.y * BQ;
+  const int row0 = q0 + 64 * wg + 16 * warp + g;  // and row0 + 8
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  auto stage_kv = [&](int t) {
+    stage_tile_f32<DMAX, BK, NT>(sKf, kb, ks.s, t * BK, S, D, tid);
+    stage_tile_f32<DMAX, BK, NT>(sVf, vb, vs.s, t * BK, S, D, tid);
+    cp_async_commit();
+  };
+
+  int n_kv = (S + BK - 1) / BK;
+  if (causal) {
+    // A kv tile is live iff it meets the causal triangle of this q tile.
+    n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
+  }
+
+  // kv tile 0 lands while Q is split.
+  stage_kv(0);
+  split_tile_global<DMAX, BQ, NT>(sQ, qb, qs.s, q0, S, D, tid);
+
+  float acc[DMAX / 2];
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};              // this thread's share of the sum
+  const float sl2 = scale * kLog2e;
+
+  for (int t = 0; t < n_kv; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is staged; every warpgroup is done with t - 1
+    split_tile_staged<DMAX, BK, NT>(sK, sKf, tid);
+    split_tile_staged<DMAX, BK, NT>(sV, sVf, tid);
+    fence_proxy_async();
+    __syncthreads();  // the part tiles are visible to wgmma; staging is free
+    if (t + 1 < n_kv) stage_kv(t + 1);
+
+    // S = Q K^T for this warpgroup's 64 rows: Qi Kj over i + j < P.
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;  // within the 128-byte row
+      const uint32_t q_off = (kk / 4) * BQ * 128 + wg * 64 * 128 + col;
+      const uint32_t k_off = (kk / 4) * BK * 128 + col;
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int j = 0; i + j < P; ++j)
+          Wgmma<BK>::ss(s, desc_k_major(sQ + i * kQBytes + q_off),
+                        desc_k_major(sK + j * kKVBytes + k_off),
+                        kk + i + j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // Online softmax on the fragment, as in the bf16 kernel.
+    const int k0 = t * BK;
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (k0 + BK > S || (causal && k0 + BK - 1 > q0 + 64 * wg))
+      scale_scores<true, BK>(s, sl2, k0, 2 * c4, row0, S, causal, mx);
+    else
+      scale_scores<false, BK>(s, sl2, k0, 2 * c4, row0, S, causal, mx);
+    float m_safe[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      m_safe[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = fast_exp2(m[r] - m_safe[r]);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(s[4 * j + e] - m_safe[e >> 1]);
+        s[4 * j + e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
+
+    // O += P V: Pi Vj over i + j < P, P's parts as register A operands.
+    uint32_t a[P][BK / 16][4];
+    split_fragments<BK>(s, a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int nc = 0; nc < DMAX / NCH; ++nc) {
+        float(&o)[NCH / 2] =
+            *reinterpret_cast<float(*)[NCH / 2]>(&acc[nc * NCH / 2]);
+        const uint32_t off = kk * 2048 + nc * (NCH / 64) * BK * 128;
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+#pragma unroll
+          for (int j = 0; i + j < P; ++j)
+            Wgmma<NCH>::rs(o, a[i][kk],
+                           desc_mn_major(sV + j * kKVBytes + off, BK * 128));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (row >= S) continue;
+    float* orow = o + (((long long)b * S + row) * H + h) * (long long)D;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int d = 8 * j + 2 * c4;
+      if (d < D)
+        *reinterpret_cast<float2*>(orow + d) = make_float2(
+            acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+    }
+    if (c4 == 0)
+      lse[(long long)bh * S + row] =
+          m[r] == -INFINITY ? -INFINITY : (m[r] + log2f(denom)) * kLn2;
+  }
+}
+
+template <int DMAX, int BK, int NWG>
+cudaError_t launch_wgmma_f32(const void* q, const void* k, const void* v,
+                             void* o, float* lse, int B, int S, int H,
+                             int Hkv, int D, Strides qs, Strides ks,
+                             Strides vs, float scale, int causal,
+                             cudaStream_t stream) {
+  constexpr size_t smem = f32_smem_bytes<DMAX, BK, NWG>();
+  auto kern = flash_fwd_kernel_wgmma_f32<DMAX, BK, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (S + 64 * NWG - 1) / (64 * NWG));
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
+  kern<<<grid, 128 * NWG, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, Hkv,
+      D, qs, ks, vs, scale, causal);
+  return cudaGetLastError();
+}
+
+// f32 tiles per head-dim bucket, the bf16 table's; ops/flash_attention.py
+// ::KERNEL_TILES["float32"] mirrors it.  Shared memory: 97, 193 and 193
+// KB (two blocks per SM at D <= 64).
+cudaError_t dispatch_wgmma_f32(const void* q, const void* k, const void* v,
+                               void* o, float* lse, int B, int S, int H,
+                               int Hkv, int D, Strides qs, Strides ks,
+                               Strides vs, float scale, int causal,
+                               cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 64, 64, 64>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks,
-                                 vs, scale, causal, stream);
+    return launch_wgmma_f32<64, 64, 2>(q, k, v, o, lse, B, S, H, Hkv, D, qs,
+                                       ks, vs, scale, causal, stream);
   if (D <= 128)
-    return launch<T, 128, 64, 64>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks,
-                                  vs, scale, causal, stream);
-  return launch<T, 256, 32, 64>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks,
-                                vs, scale, causal, stream);
+    return launch_wgmma_f32<128, 64, 2>(q, k, v, o, lse, B, S, H, Hkv, D, qs,
+                                        ks, vs, scale, causal, stream);
+  return launch_wgmma_f32<256, 32, 1>(q, k, v, o, lse, B, S, H, Hkv, D, qs,
+                                      ks, vs, scale, causal, stream);
 }
 
 }  // namespace
@@ -549,7 +514,7 @@ extern "C" {
 
 // Returns a cudaError_t: 0 when the launch was accepted.  Strides are in
 // elements; o is a contiguous [B, S, H, D] tensor of the input dtype and
-// lse a contiguous [B*H, S] f32 tensor.  bf16 inputs must satisfy
+// lse a contiguous [B*H, S] f32 tensor.  Inputs must satisfy
 // tensor_core_operand (cudaErrorInvalidValue otherwise).
 int dml_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   float* lse, int B, int S, int H, int Hkv, int D,
@@ -564,16 +529,16 @@ int dml_flash_fwd(const void* q, const void* k, const void* v, void* o,
   const Strides ks{ksb, kss, ksh, ksd};
   const Strides vs{vsb, vss, vsh, vsd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (!hopper::tensor_core_operand(q, qs, D) ||
-        !hopper::tensor_core_operand(k, ks, D) ||
-        !hopper::tensor_core_operand(v, vs, D))
-      return (int)cudaErrorInvalidValue;
+  const int align = is_bf16 ? 8 : 4;  // elements in 16 bytes
+  if (!hopper::tensor_core_operand(q, qs, D, align) ||
+      !hopper::tensor_core_operand(k, ks, D, align) ||
+      !hopper::tensor_core_operand(v, vs, D, align))
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
     return (int)dispatch_wgmma(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks, vs,
                                scale, causal, st);
-  }
-  return (int)dispatch<float>(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks, vs,
-                              scale, causal, st);
+  return (int)dispatch_wgmma_f32(q, k, v, o, lse, B, S, H, Hkv, D, qs, ks,
+                                 vs, scale, causal, st);
 }
 
 const char* dml_cuda_error_string(int err) {

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the bf16 tensor-core flash
-// kernels in flash_fwd.cu and flash_bwd.cu: cp.async copies into
-// 128-byte-swizzled shared-memory tiles, wgmma shared-memory descriptors
-// for those tiles, and warpgroup matrix multiplies (wgmma.mma_async) at the
-// tile widths the kernels use.  Raw PTX, no library.
+// Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
+// in flash_fwd.cu and flash_bwd.cu: cp.async copies into 128-byte-swizzled
+// shared-memory tiles, the split of f32 tiles into bf16 high and low tiles,
+// wgmma shared-memory descriptors for those tiles, and warpgroup matrix
+// multiplies (wgmma.mma_async) at the tile widths the kernels use.  Raw
+// PTX, no library.
 //
 // Tile layout.  A tile of ROWS rows x DMAX bf16 columns (DMAX a multiple
 // of 64) is stored as DMAX/64 column blocks of ROWS rows x 128 bytes; in
@@ -85,13 +86,17 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   }
 }
 
-// What load_tile reads with 16-byte copies: unit column stride, 16-byte
-// aligned rows (element strides b, s, h multiples of 8 and an aligned
-// base) and D a multiple of 8.  `St` holds the strides b, s, h, d.
+// What load_tile (bf16) and stage_tile_f32 (f32) read with 16-byte
+// copies: unit column stride, 16-byte aligned rows (element strides b, s,
+// h multiples of `align`, the elements in 16 bytes, and an aligned base)
+// and D a multiple of 8 (one 16-byte chunk of a bf16 tile).  `St` holds
+// the strides b, s, h, d.
 template <typename St>
-inline bool tensor_core_operand(const void* p, const St& st, int D) {
-  return st.d == 1 && st.b % 8 == 0 && st.s % 8 == 0 && st.h % 8 == 0 &&
-         reinterpret_cast<uintptr_t>(p) % 16 == 0 && D % 8 == 0;
+inline bool tensor_core_operand(const void* p, const St& st, int D,
+                                int align = 8) {
+  return st.d == 1 && st.b % align == 0 && st.s % align == 0 &&
+         st.h % align == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         D % 8 == 0;
 }
 
 // CUDA's grid limits, which every launch of flash_fwd.cu and flash_bwd.cu
@@ -211,11 +216,190 @@ __device__ __forceinline__ void low_fragments(const float (&d)[N / 2],
     }
 }
 
+// ---- f32 operands as split bf16 parts -------------------------------------
+//
+// The f32 kernels hold each f32 operand x as kSplitParts bf16 tiles of the
+// layout above, one after another: part 0 = bf16(x) and each next part the
+// bf16 rounding of what the parts before it left, so that two parts give
+// x to 2^-16 of x.  A product A B is then the sum of Ai Bj over i + j <
+// kSplitParts, bf16 wgmmas into one f32 accumulator (each bf16 x bf16
+// product is exact in f32): with two parts Ahi Bhi + Ahi Blo + Alo Bhi,
+// the dropped Alo Blo at most 2^-16 of |A| |B|.  f32 rows reach the split
+// either straight from global memory (split_tile_global, for tiles loaded
+// once) or through an f32 staging tile filled by cp.async while the
+// previous tile computes (stage_tile_f32, then split_tile_staged).
+constexpr int kSplitParts = 2;
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a,
+                                             uint32_t b) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a),
+               "r"(b)
+               : "memory");
+}
+
+// Two floats as kSplitParts bf16 pairs (first float in the low half).
+__device__ __forceinline__ void split_pair(float x, float y,
+                                           uint32_t (&parts)[kSplitParts]) {
+#pragma unroll
+  for (int i = 0; i < kSplitParts; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 f = __bfloat1622float2(h);
+    parts[i] = *reinterpret_cast<uint32_t*>(&h);
+    x -= f.x;
+    y -= f.y;
+  }
+}
+
+// Floats col .. col + 3 (col a multiple of 4) of row r split into the
+// part tiles at `tile` (each `rows` rows, part i at tile + i * part_bytes).
+__device__ __forceinline__ void split_store4(uint32_t tile,
+                                             uint32_t part_bytes, int rows,
+                                             int r, int col, float4 x) {
+  const uint32_t off = swizzled(rows, r, col / 8) + (col % 8) * 2;
+  uint32_t p0[kSplitParts], p1[kSplitParts];
+  split_pair(x.x, x.y, p0);
+  split_pair(x.z, x.w, p1);
+#pragma unroll
+  for (int i = 0; i < kSplitParts; ++i)
+    st_shared_v2(tile + i * part_bytes + off, p0[i], p1[i]);
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a [S, D] f32 matrix (row stride
+// `stride` elements, unit column stride, 16-byte aligned rows) split into
+// the part tiles at `tile`, with plain loads (four 16-byte loads in
+// flight a thread, which keeps the kernels' accumulators clear of
+// spills); rows past S and columns past D (a multiple of 4) are zero.
+// All NT threads take part.
+template <int DMAX, int ROWS, int NT>
+__device__ __forceinline__ void split_tile_global(uint32_t tile,
+                                                  const float* src,
+                                                  long long stride, int row0,
+                                                  int S, int D, int tid) {
+  constexpr int kChunks = DMAX / 4;  // 16-byte chunks per row
+  constexpr int kPer = ROWS * kChunks / NT;
+  constexpr int kBatch = kPer < 4 ? kPer : 4;
+  static_assert(kPer * NT == ROWS * kChunks && kPer % kBatch == 0,
+                "uneven tile split");
+#pragma unroll
+  for (int it0 = 0; it0 < kPer; it0 += kBatch) {
+    float4 x[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = tid + (it0 + j) * NT;
+      const int s = row0 + i / kChunks;
+      const int c = i % kChunks;
+      x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (s < S && c * 4 < D)
+        x[j] = *reinterpret_cast<const float4*>(src + (long long)s * stride +
+                                                c * 4);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = tid + (it0 + j) * NT;
+      split_store4(tile, ROWS * DMAX * 2, ROWS, i / kChunks,
+                   (i % kChunks) * 4, x[j]);
+    }
+  }
+}
+
+// The same rows as f32 into a row-major [ROWS][DMAX] staging tile at
+// shared address `dst`, asynchronously (cp.async; zero past S and D).
+template <int DMAX, int ROWS, int NT>
+__device__ __forceinline__ void stage_tile_f32(uint32_t dst, const float* src,
+                                               long long stride, int row0,
+                                               int S, int D, int tid) {
+  constexpr int kChunks = DMAX / 4;
+  static_assert((ROWS * kChunks) % NT == 0, "uneven tile load");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / NT; ++it) {
+    const int i = tid + it * NT;
+    const int s = row0 + i / kChunks;
+    const int c = i % kChunks;
+    const bool ok = s < S && c * 4 < D;
+    const float* p = ok ? src + (long long)s * stride + c * 4 : src;
+    cp_async16(dst + 16u * i, p, ok);
+  }
+}
+
+// A staged [ROWS][DMAX] f32 tile (stage_tile_f32, landed and visible to
+// every thread) split into the part tiles at `tile`.  Each thread reads 16
+// consecutive bytes and writes 8 to each part, so no access conflicts on
+// a bank; four reads are in flight before the first write.
+template <int DMAX, int ROWS, int NT>
+__device__ __forceinline__ void split_tile_staged(uint32_t tile,
+                                                  uint32_t staged, int tid) {
+  constexpr int kChunks = DMAX / 4;
+  constexpr int kPer = ROWS * kChunks / NT;
+  constexpr int kBatch = kPer < 4 ? kPer : 4;
+  static_assert(kPer * NT == ROWS * kChunks && kPer % kBatch == 0,
+                "uneven tile split");
+#pragma unroll
+  for (int it0 = 0; it0 < kPer; it0 += kBatch) {
+    float4 x[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(x[j].x), "=f"(x[j].y), "=f"(x[j].z), "=f"(x[j].w)
+                   : "r"(staged + 16u * (tid + (it0 + j) * NT))
+                   : "memory");
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = tid + (it0 + j) * NT;
+      split_store4(tile, ROWS * DMAX * 2, ROWS, i / kChunks,
+                   (i % kChunks) * 4, x[j]);
+    }
+  }
+}
+
+// The accumulator fragment `d` of a 64 x N product (see to_a_fragments)
+// as kSplitParts register A operands, part i the bf16 rounding of what
+// parts 0 .. i - 1 left, one part at a time over the whole fragment (per
+// entry, all parts at once, the f32 forward spilled under its
+// 128-register bound).
+template <int N>
+__device__ __forceinline__ void split_fragments(
+    const float (&d)[N / 2], uint32_t (&a)[kSplitParts][N / 16][4]) {
+  float r[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) r[e] = d[e];
+#pragma unroll
+  for (int p = 0; p < kSplitParts; ++p)
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        __nv_bfloat162 h = __floats2bfloat162_rn(r[8 * kk + 2 * i],
+                                                 r[8 * kk + 2 * i + 1]);
+        a[p][kk][i] = *reinterpret_cast<uint32_t*>(&h);
+        if (p + 1 < kSplitParts) {
+          const float2 f = __bfloat1622float2(h);
+          r[8 * kk + 2 * i] -= f.x;
+          r[8 * kk + 2 * i + 1] -= f.y;
+        }
+      }
+}
+
 // Warpgroup products, bf16 x bf16 -> f32, m64 x N x k16.  ss: A and B
 // K-major in shared memory; `accumulate` = 0 overwrites d.  rs: A from
 // registers, B MN-major in shared memory, always accumulating.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d[64 x 16] (+)= A[64 x 16] B[16 x 16], A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
 
 template <>
 struct Wgmma<32> {

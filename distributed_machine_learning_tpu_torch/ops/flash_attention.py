@@ -11,11 +11,14 @@ tensor takes :func:`flash_attention_reference` /
 :func:`flash_attention_backward_reference`, the plain PyTorch versions of
 the same functions.  Nothing falls back from one to the other.
 
-On the card every kernel picks its code by dtype: bf16 runs on the
-tensor cores (``wgmma``), reading rows with 16-byte copies, so
+On the card every kernel picks its code by dtype.  bf16 runs on the
+tensor cores (``wgmma``).  The f32 forward and dK/dV kernels run there
+too, each f32 operand split into a bf16 high and low part and each
+product taken as three bf16 products (hi hi + hi lo + lo hi), which keeps
+f32 precision; the f32 dQ kernel runs on the CUDA cores, through strides.
+The tensor-core kernels read rows with 16-byte copies, so
 :func:`tensor_core_operands` first copies any input whose layout they
-cannot read; f32 runs on the CUDA cores, through strides, at f32
-precision.
+cannot read.
 
 Shapes follow the JAX package: q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]``
 with ``H % Hkv == 0`` (grouped-query attention; kv is never repeated),
@@ -36,23 +39,26 @@ KERNEL_NAME = "flash_fwd"
 BACKWARD_SOURCE = "flash_bwd"
 
 # (head-dim bucket, (block_q, block_k)) per kernel and dtype, as compiled
-# in csrc/flash_fwd.cu and csrc/flash_bwd.cu.  bf16 is the tensor-core
-# code (block_q = 64 rows per warpgroup; the dK/dV kernel's block_k is
-# the kv rows one block owns), each the fastest of the variants that
-# chip_flash_study.py measured (PERF.md); f32 the CUDA-core code, untuned
-# beyond fitting Hopper's registers and shared memory.  The TPU package's
-# VMEM-derived caps (_default_blocks there) do not apply.
-_CUDA_CORE_FORWARD = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
-                      (256, (32, 64)))
+# in csrc/flash_fwd.cu and csrc/flash_bwd.cu.  The tensor-core code has
+# block_q = 64 rows per warpgroup, and the dK/dV kernel's block_k is the
+# kv rows one block owns; the bf16 tiles are each the fastest of the
+# variants that chip_flash_study.py measured (PERF.md).  The f32 forward
+# takes the bf16 forward's tiles, the f32 dK/dV the bf16 ones but for
+# smaller q tiles at D > 64 (32 rows at D = 128, where 64 spill; 16 at
+# D = 256, what fits shared memory with the hi/lo and staging tiles).
+# The f32 dQ is the CUDA-core code, untuned beyond fitting Hopper's
+# registers and shared memory.  The TPU package's VMEM-derived caps
+# (_default_blocks there) do not apply.
 _CUDA_CORE_BACKWARD = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
                        (256, (32, 32)))
+_TENSOR_CORE_FORWARD = ((64, (128, 64)), (128, (128, 64)), (256, (64, 32)))
 KERNEL_TILES = {
-    "float32": _CUDA_CORE_FORWARD,
-    "bfloat16": ((64, (128, 64)), (128, (128, 64)), (256, (64, 32))),
+    "float32": _TENSOR_CORE_FORWARD,
+    "bfloat16": _TENSOR_CORE_FORWARD,
 }
 BACKWARD_TILES = {
     "flash_bwd_dkdv": {
-        "float32": _CUDA_CORE_BACKWARD,
+        "float32": ((64, (64, 128)), (128, (32, 64)), (256, (16, 64))),
         "bfloat16": ((64, (64, 128)), (128, (64, 64)), (256, (32, 64))),
     },
     "flash_bwd_dq": {"float32": _CUDA_CORE_BACKWARD,
@@ -209,21 +215,23 @@ def _check_grid(kernel: str, S: int, D: int, dtype: torch.dtype) -> None:
 
 
 def _conforms(t: torch.Tensor) -> bool:
-    """Whether the bf16 tensor-core kernels read ``t`` ([..., D]) in
-    place: they copy each row with 16-byte loads, so D must be a multiple
-    of 8 with unit stride, every other stride a multiple of 8 elements and
-    the base 16-byte aligned."""
+    """Whether the tensor-core kernels read ``t`` ([..., D]) in place:
+    they copy each row with 16-byte loads into tiles of 8-column bf16
+    chunks, so D must be a multiple of 8 with unit stride, every other
+    stride a multiple of 16 bytes (8 bf16 or 4 f32 elements) and the base
+    16-byte aligned."""
+    align = 16 // t.element_size()
     return (t.shape[-1] % 8 == 0 and t.stride(-1) == 1
-            and all(st % 8 == 0 for st in t.stride()[:-1])
+            and all(st % align == 0 for st in t.stride()[:-1])
             and t.data_ptr() % 16 == 0)
 
 
 def tensor_core_operands(*tensors: torch.Tensor):
-    """``tensors`` (all [..., D]) as the bf16 tensor-core kernels read
-    them.  Each one that does not conform (:func:`_conforms`: a layout with
-    D not innermost, autograd's stride-0 dO, D not a multiple of 8, an
-    unaligned base) becomes one contiguous copy, zero-padded in D to the
-    next multiple of 8; the others are passed through.  Zero columns add
+    """``tensors`` (all [..., D]) as the tensor-core kernels read them.
+    Each one that does not conform (:func:`_conforms`: a layout with D not
+    innermost, autograd's stride-0 dO, D not a multiple of 8, an unaligned
+    base) becomes one contiguous copy, zero-padded in D to the next
+    multiple of 8; the others are passed through.  Zero columns add
     nothing to Q K^T or dO V^T and come out as zero columns of O, dK and
     dV, which the caller slices off; the caller keeps the original D's
     scale."""
@@ -259,8 +267,7 @@ def _launch(q, k, v, scale: float, causal: bool):
     lse = torch.empty((B * H, 1, S), dtype=torch.float32, device=q.device)
     if B * S * H * D == 0:
         return torch.empty((B, S, H, D), dtype=q.dtype, device=q.device), lse
-    if q.dtype == torch.bfloat16:
-        q, k, v = tensor_core_operands(q, k, v)
+    q, k, v = tensor_core_operands(q, k, v)
     d_run = q.shape[-1]
     _check_grid(KERNEL_NAME, S, d_run, q.dtype)
     out = torch.empty((B, S, H, d_run), dtype=q.dtype, device=q.device)
@@ -448,8 +455,7 @@ def flash_bwd_dkdv(q, k, v, lse, do, delta, scale: float,
     _check_kernel_inputs(q, k, v)
     _check_dout(q, do)
     D = k.shape[-1]
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = tensor_core_operands(q, k, v, do)
+    q, k, v, do = tensor_core_operands(q, k, v, do)
     # Contiguous, as the kernel writes them (empty_like would keep a
     # permuted layout of k).
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -461,8 +467,8 @@ def flash_bwd_dkdv(q, k, v, lse, do, delta, scale: float,
 
 def flash_bwd_dq(q, k, v, lse, do, delta, scale: float,
                  causal: bool) -> torch.Tensor:
-    """Kernel dq: ``dq``.  CUDA tensors run the kernel; CPU tensors run the
-    plain version."""
+    """Kernel dq: ``dq``.  CUDA tensors run the kernel (f32 on the CUDA
+    cores, reading any strides); CPU tensors run the plain version."""
     if _on_device(q) == "cpu":
         return flash_bwd_dq_reference(q, k, v, lse, do, delta, scale, causal)
     _check_kernel_inputs(q, k, v)
@@ -485,9 +491,9 @@ def flash_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients ``(dq, dk, dv)`` of flash attention; dk/dv at Hkv heads.
     The dK/dV kernel runs first, then the dQ kernel, as in
-    ``_flash_backward``.  In bf16 on the card both read one conforming
-    copy (:func:`tensor_core_operands`) of whatever input needs one, such
-    as autograd's stride-0 dO.
+    ``_flash_backward``.  On the card both read one conforming copy
+    (:func:`tensor_core_operands`) of whatever input needs one, such as
+    autograd's stride-0 dO.
 
     ``q_side``: optional precomputed ``(q, do, delta)`` (delta from
     :func:`backward_delta`), as in the JAX package's ``_flash_backward``:
@@ -502,7 +508,7 @@ def flash_backward(
     D = q.shape[-1]
     _default_blocks(q.shape[1], D, block_q, block_k, backward=True,
                     dtype=q.dtype)
-    if q.dtype == torch.bfloat16 and _on_device(q) == "cuda":
+    if _on_device(q) == "cuda":
         q, k, v, do = tensor_core_operands(q, k, v, do)
     dk, dv = flash_bwd_dkdv(q, k, v, lse, do, delta, s, causal)
     dq = flash_bwd_dq(q, k, v, lse, do, delta, s, causal)

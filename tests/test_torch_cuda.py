@@ -67,10 +67,12 @@ def test_kernel_reads_strided_inputs(card):
     assert (out - ref).abs().max().item() <= 2e-4
 
 
-# Relative to the largest entry (_rel_err).  f32: the kernels and the
-# plain versions differ only in summation order (~1e-6).  bf16: both sides
-# accumulate in f32 and round each entry to bf16 once, so an entry differs
-# by at most one bf16 ulp, at most 2**-7 of the largest entry.
+# Relative to the largest entry (_rel_err).  f32: the forward and dK/dV
+# kernels take each product as three bf16 products of split parts (each
+# operand to 2**-16, 1e-5 to 4e-5 of the largest entry), the dQ kernel
+# differs from its plain version in summation order (~1e-6).  bf16: both
+# sides accumulate in f32 and round each entry to bf16 once, so an entry
+# differs by at most one bf16 ulp, at most 2**-7 of the largest entry.
 @pytest.mark.parametrize("dtype,rtol", [("float32", 2e-4), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("H,Hkv,D,S", [(8, 8, 64, 512), (8, 4, 16, 96),
@@ -166,6 +168,42 @@ def test_bf16_dq_kernel_matches_plain_version(card, causal, H, Hkv, D, S,
     assert torch.equal(dq, dq2)
 
 
+# The f32 forward and dK/dV kernels run on the tensor cores with each
+# operand split into bf16 high and low parts: every head-dim bucket,
+# ragged S, grouped kv, causal masking, D = 33 and inputs stored
+# [B, H, D, S] (both through the wrapper's conforming copy), at the f32
+# tolerance (2e-4 of the largest entry); dK/dV has no atomics, so a rerun
+# gives the same bits.
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("H,Hkv,D,S,layout", [
+    (8, 8, 64, 130, "dense"), (8, 1, 64, 1000, "dense"),
+    (8, 2, 33, 130, "dense"), (8, 4, 64, 200, "transposed"),
+    (4, 2, 128, 130, "dense"), (2, 2, 256, 130, "dense")])
+def test_f32_tensor_core_kernels_match_plain_version(card, causal, H, Hkv,
+                                                     D, S, layout):
+    gen = torch.Generator().manual_seed(S + D + 4)
+    q, k, v, do = (torch.randn(2, S, h, D, generator=gen).to(card)
+                   for h in (H, Hkv, Hkv, H))
+    if layout == "transposed":
+        q, k, v, do = (_stored_transposed(x) for x in (q, k, v, do))
+    before = (fa.launches.count, fa.dkdv_launches.count)
+    out, lse = fa.flash_forward(q, k, v, 0.3, causal, with_lse=True)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, 0.3, causal)
+    delta = fa.backward_delta(out, do)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, lse, do, delta, 0.3, causal)
+    dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, lse, do, delta, 0.3, causal)
+    ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(q, k, v, lse, do, delta,
+                                                 0.3, causal)
+    torch.cuda.synchronize()
+    assert (fa.launches.count, fa.dkdv_launches.count) == (
+        before[0] + 1, before[1] + 2)
+    assert out.dtype == dk.dtype == dv.dtype == torch.float32
+    assert _rel_err(out, ref_out) <= 2e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert _rel_err(dk, ref_dk) <= 2e-4 and _rel_err(dv, ref_dv) <= 2e-4
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
 @pytest.mark.parametrize("dtype,rtol", [("float32", 2e-4), ("bfloat16", 2e-2)])
 def test_kernels_take_batch_times_heads_past_65535(card, dtype, rtol):
     """B*H = 65544 blocks on the grid's x axis, through all three kernels
@@ -209,21 +247,26 @@ def test_bf16_kernels_take_conforming_copies(card):
 
 
 def test_tensor_core_kernels_run_hgmma(card):
-    """The bf16 kernels (forward, dK/dV and dQ) compile to Hopper's
-    warpgroup MMA (HGMMA in the SASS), where the toolkit has cuobjdump to
-    show it."""
+    """The tensor-core kernels (bf16 forward, dK/dV and dQ; f32 forward
+    and dK/dV as split bf16) compile to Hopper's warpgroup MMA (HGMMA in
+    the SASS), where the toolkit has cuobjdump to show it."""
     from distributed_machine_learning_tpu_torch.ops import _build
 
     fa.build_kernels()
+    expected = {
+        fa.KERNEL_NAME: {"flash_fwd_kernel_wgmma",
+                         "flash_fwd_kernel_wgmma_f32"},
+        fa.BACKWARD_SOURCE: {"flash_bwd_dkdv_kernel_wgmma",
+                             "flash_bwd_dq_kernel_wgmma",
+                             "flash_bwd_dkdv_kernel_wgmma_f32"},
+    }
     for name in (fa.KERNEL_NAME, fa.BACKWARD_SOURCE):
         counts = _build.sass_counts(name)
         if counts is None:
             pytest.skip("the toolkit has no cuobjdump")
         wgmma = {k: c for k, c in counts.items() if "_wgmma" in k}
         assert wgmma and all(c["HGMMA"] > 0 for c in wgmma.values())
-        if name == fa.BACKWARD_SOURCE:
-            assert {k.split("<")[0] for k in wgmma} == {
-                "flash_bwd_dkdv_kernel_wgmma", "flash_bwd_dq_kernel_wgmma"}
+        assert {k.split("<")[0] for k in wgmma} == expected[name]
 
 
 @pytest.mark.parametrize("layout", ["fused_qkv", "heads_first"])

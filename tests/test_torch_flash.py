@@ -123,16 +123,19 @@ def test_backward_raises_instead_of_a_silent_plain_gradient():
 
 def test_fixed_kernel_tile_and_shape_checks():
     bf16 = torch.bfloat16
-    # f32: the CUDA-core tiles.
-    assert port._default_blocks(2048, 64) == (64, 64)
-    assert port._default_blocks(2048, 256) == (32, 64)
-    assert port._default_blocks(96, 16, block_q=64) == (64, 64)
+    # f32: the split-precision tensor-core tiles of the forward and dK/dV
+    # (a 16-row q tile for dK/dV at D > 128), the CUDA-core tiles of dQ.
+    assert port._default_blocks(2048, 64) == (128, 64)
+    assert port._default_blocks(2048, 256) == (64, 32)
+    assert port._default_blocks(96, 16, block_q=128) == (128, 64)
+    assert port._default_blocks(2048, 64, backward=True) == {
+        "flash_bwd_dkdv": (64, 128), "flash_bwd_dq": (64, 64)}
     assert port._default_blocks(2048, 256, backward=True) == {
-        "flash_bwd_dkdv": (32, 32), "flash_bwd_dq": (32, 32)}
+        "flash_bwd_dkdv": (16, 64), "flash_bwd_dq": (32, 32)}
     with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
         port._default_blocks(2048, 256, block_k=64, backward=True)
     with pytest.raises(ValueError, match="compiled for tiles"):
-        port._default_blocks(2048, 64, block_q=128)
+        port._default_blocks(2048, 64, block_q=64)
     # bf16: the tensor-core tiles (64 q rows per warpgroup) of every
     # kernel.
     assert port._default_blocks(2048, 64, dtype=bf16) == (128, 64)
@@ -185,9 +188,9 @@ def test_kernel_inputs_take_batch_times_heads_past_65535():
     port._check_grid("flash_bwd_dq", 65535 * 128, 64, bf16)
     with pytest.raises(ValueError, match="65536 tiles"):
         port._check_grid("flash_bwd_dq", 65535 * 128 + 1, 64, bf16)
-    port._check_grid("flash_bwd_dkdv", 65535 * 32, 256, torch.float32)
+    port._check_grid("flash_bwd_dkdv", 65535 * 64, 256, torch.float32)
     with pytest.raises(ValueError, match="kernel grid"):
-        port._check_grid("flash_bwd_dkdv", 65535 * 32 + 1, 256,
+        port._check_grid("flash_bwd_dkdv", 65535 * 64 + 1, 256,
                          torch.float32)
     port._check_grid(port.KERNEL_NAME, 65535 * 64, 256, bf16)
     with pytest.raises(ValueError, match="kernel grid"):

@@ -146,11 +146,12 @@ def test_fully_masked_rows_get_zero_gradient():
 def test_backward_tile_is_checked_before_the_forward_runs():
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(16, S=8, D=256))
     q.requires_grad_()
-    # (32, 64) is the forward's tile at head_dim 256; the backward's is
-    # (32, 32), so asking for gradients with block_k=64 raises at once.
+    # f32: (64, 32) is the forward's tile at head_dim 256; the dK/dV
+    # kernel's is (16, 64), so asking for gradients with block_k=32 raises
+    # at once.
     with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
-        port.flash_attention(q, k, v, block_k=64)
-    out = port.flash_attention(q.detach(), k, v, block_k=64)
+        port.flash_attention(q, k, v, block_k=32)
+    out = port.flash_attention(q.detach(), k, v, block_k=32)
     assert out.shape == q.shape
     # bf16: the tensor-core forward's tile is (64, 32); the dK/dV kernel's
     # is (32, 64) and the dQ kernel's (64, 32), so no block_k serves all.
@@ -159,3 +160,107 @@ def test_backward_tile_is_checked_before_the_forward_runs():
         port.flash_attention(qb.requires_grad_(), kb, vb, block_k=32)
     out = port.flash_attention(qb.detach(), kb, vb, block_k=32)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
+
+
+# The f32 forward and dK/dV kernels on the card split each f32 operand x
+# into bf16 parts hi = bf16(x), lo = bf16(x - hi) and take each product
+# A B as Ahi Bhi + Ahi Blo + Alo Bhi in an f32 accumulator (the lo lo
+# term dropped): Q K^T, P V (P the max-shifted exponentials), K Q^T,
+# V dO^T, P^T dO and dS^T Q.  The tests below emulate that scheme in
+# plain PyTorch and hold it against the JAX package's Pallas kernels
+# (interpret mode) at the f32 tolerance of the card (KERNEL_TOL["float32"]
+# in chip_smoke.py: 2e-4 of the largest entry), so the scheme is shown to
+# meet the limit before any card runs it.
+F32_KERNEL_TOL = 2e-4
+
+
+def _split(t):
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _split_einsum(eq, a, b, terms=("hh", "hl", "lh")):
+    """``einsum(eq, a, b)`` from the named products of split parts."""
+    parts = {"h": 0, "l": 1}
+    sa, sb = _split(a), _split(b)
+    return sum(torch.einsum(eq, sa[parts[x]], sb[parts[y]]) for x, y in terms)
+
+
+def _split_attention(q, k, v, do, scale, causal, terms=("hh", "hl", "lh")):
+    """The f32 kernels' arithmetic, densely: (out, dk, dv), with lse and
+    delta from the emulated forward, as the backward on the card takes
+    them from the forward kernel."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    mm = lambda eq, a, b: _split_einsum(eq, a, b, terms)  # noqa: E731
+    qf, dof = q.reshape(B, S, Hkv, g, D), do.reshape(B, S, Hkv, g, D)
+    logits = mm("bqhgd,bkhd->bhgqk", qf, k) * scale
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    den = p.sum(-1, keepdim=True)
+    out = mm("bhgqk,bkhd->bqhgd", p, v) / den.permute(0, 3, 1, 2, 4)
+    lse = m + torch.log(den)  # [B, Hkv, g, S, 1]
+    delta = (dof * out).sum(-1).permute(0, 2, 3, 1).unsqueeze(-1)
+    p = torch.exp(logits - lse)
+    ds = p * (mm("bqhgd,bkhd->bhgqk", dof, v) - delta) * scale
+    dv = mm("bhgqk,bqhgd->bkhd", p, dof)
+    dk = mm("bhgqk,bqhgd->bkhd", ds, qf)
+    return out.reshape(B, S, H, D), dk, dv
+
+
+def _pallas_out_and_grads(q, k, v, do, scale, causal):
+    out, vjp = jax.vjp(
+        lambda a, b, c: jax_flash_attention(
+            a, b, c, scale=scale, causal=causal, block_q=BQ, block_k=BK,
+            interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    _, dk, dv = vjp(jnp.asarray(do))
+    return tuple(np.asarray(t) for t in (out, dk, dv))
+
+
+def _rel_err(got, want):
+    """max |err| over max |want| (chip_smoke.py's _rel_err)."""
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+SPLIT_CASES = {
+    "mha": dict(H=2, Hkv=2),
+    "causal": dict(H=2, Hkv=2, causal=True),
+    "gqa_causal": dict(H=4, Hkv=2, causal=True),
+    "mqa_scale": dict(H=4, Hkv=1, scale=0.37),
+}
+
+
+@pytest.mark.parametrize("D", [8, 33, 64])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_precision_scheme_meets_the_f32_limit(name, D):
+    """The split scheme's forward, dK and dV within 2e-4 of the largest
+    entry of the Pallas kernels' (S = 50, B = 2)."""
+    case = dict(SPLIT_CASES[name])
+    causal = case.pop("causal", False)
+    scale = case.pop("scale", None)
+    q, k, v, do = _inputs(17 + D, S=50, D=D, B=2, **case)
+    s = D ** -0.5 if scale is None else scale
+    want = _pallas_out_and_grads(q, k, v, do, scale, causal)
+    got = _split_attention(*(torch.from_numpy(a) for a in (q, k, v, do)), s,
+                           causal)
+    for label, g, w in zip(("out", "dk", "dv"), got, want):
+        assert g.shape == w.shape, label
+        assert _rel_err(g.numpy(), w) <= F32_KERNEL_TOL, label
+
+
+def test_one_bf16_product_misses_the_f32_limit():
+    """The emulation can fail: taking each product as one bf16 product
+    (hi hi only, what a plain bf16 or tf32-like rounding of the f32
+    operands gives) lands outside 2e-4 on the same inputs."""
+    q, k, v, do = _inputs(81, S=50, D=64, B=2, H=4, Hkv=2)
+    want = _pallas_out_and_grads(q, k, v, do, None, True)
+    got = _split_attention(*(torch.from_numpy(a) for a in (q, k, v, do)),
+                           64 ** -0.5, True, terms=("hh",))
+    assert max(_rel_err(g.numpy(), w) for g, w in zip(got, want)) > \
+        F32_KERNEL_TOL
