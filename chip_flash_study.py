@@ -9,11 +9,13 @@ baseline ("shipped").  Each variant is the same sources with a few text
 edits (a tile, a launch bound, the ring depth, the forward's split of P,
 the dQ kernel's split of dS, the always-on mask and ``exp2f``; for the
 f32 split-precision kernels, ``f32_*``: the f32 staging tile against
-splitting straight from global memory, the blocks per SM and the q tile),
-built with nvcc into ``_build/study/`` and swapped in under the port's
-wrappers.  Every variant is held against the plain PyTorch version at
-KERNEL_TOL of its dtype, timed in turns with the others of its kind at
-the flagship shape (B=8, S=2048, H=8, D=64, bf16 or f32), and read on one
+splitting straight from global memory, the blocks per SM, the q or kv
+tile and three parts instead of two), built with nvcc into
+``_build/study/`` and swapped in under the port's wrappers.  Every
+variant is held against the plain PyTorch version at KERNEL_TOL of its
+dtype, timed in turns with the others of its kind at the flagship shape
+(B=8, S=2048, H=8, D=64, bf16 or f32; ``f32_dq_d256_*`` at D = 256, the
+head dim whose tile they change), and read on one
 flagship training step of its dtype (chip_smoke.py's ``_step_grads``, per
 parameter against the plain step; f32 variants must stay within
 STEP_TOL["float32"]).  Forward variants
@@ -47,9 +49,9 @@ _STAGES3 = {"hopper.cuh": [("constexpr int STAGES = 2;",
 
 
 _DQ_ONE_BLOCK = ("__launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)\n"
-                 "    flash_bwd_dq_kernel_wgmma",
+                 "    flash_bwd_dq_kernel_wgmma(",
                  "__launch_bounds__(128 * NWG, 1)\n"
-                 "    flash_bwd_dq_kernel_wgmma")
+                 "    flash_bwd_dq_kernel_wgmma(")
 _DQ_BK64 = ("return launch_dq_wgmma<64, 32, 2>(a, st);",
             "return launch_dq_wgmma<64, 64, 2>(a, st);")
 
@@ -65,8 +67,9 @@ _BK128 = [_fwd_tile(128), _ONE_BLOCK]
 
 # f32: the K/V tiles split straight from global memory each step (plain
 # loads, latency exposed) instead of landing by cp.async in the staging
-# tile while the previous tile computes.
-_F32_FWD_UNSTAGED = [
+# tile while the previous tile computes; the lines of the forward's and
+# the dQ kernel's K/V staging, in flash_fwd.cu or flash_bwd.cu.
+_F32_UNSTAGED = [
     ("  stage_kv(0);\n", ""),
     ("    if (t + 1 < n_kv) stage_kv(t + 1);\n", ""),
     ("    split_tile_staged<DMAX, BK, NT>(sK, sKf, tid);\n"
@@ -84,6 +87,19 @@ _F32_FWD_ONE_BLOCK = ("__launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)\n"
                       "    flash_fwd_kernel_wgmma_f32",
                       "__launch_bounds__(128 * NWG, 1)\n"
                       "    flash_fwd_kernel_wgmma_f32")
+_F32_DQ_ONE_BLOCK = ("__launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)\n"
+                     "    flash_bwd_dq_kernel_wgmma_f32(",
+                     "__launch_bounds__(128 * NWG, 1)\n"
+                     "    flash_bwd_dq_kernel_wgmma_f32(")
+# The f32 dQ without its staging tiles: their shared memory dropped too,
+# so that a 32-column kv tile fits at D = 256.
+_F32_DQ_UNSTAGED = [*_F32_UNSTAGED, ("(size_t)8 * BK * DMAX + 1024;", "1024;")]
+
+
+def _f32_dq_tile(dmax: int, old: str, new: str):
+    return (f"return launch_dq_wgmma_f32<{dmax}, {old}>(a, st);",
+            f"return launch_dq_wgmma_f32<{dmax}, {new}>(a, st);")
+
 
 
 VARIANTS = {
@@ -124,7 +140,7 @@ VARIANTS = {
         _DQ_ONE_BLOCK, _DQ_BK64]}),
     "dq_two_blocks_bk64": ("flash_bwd", {"flash_bwd.cu": [_DQ_BK64]}),
     "f32_fwd_shipped": ("flash_fwd", {}),
-    "f32_fwd_unstaged": ("flash_fwd", {"flash_fwd.cu": _F32_FWD_UNSTAGED}),
+    "f32_fwd_unstaged": ("flash_fwd", {"flash_fwd.cu": _F32_UNSTAGED}),
     "f32_fwd_one_block_per_sm": ("flash_fwd", {"flash_fwd.cu": [
         _F32_FWD_ONE_BLOCK]}),
     "f32_fwd_three_parts": ("flash_fwd", {
@@ -135,6 +151,20 @@ VARIANTS = {
         ("return launch_dkdv_wgmma_f32<64, 64, 1>(a, st);",
          "return launch_dkdv_wgmma_f32<64, 32, 1>(a, st);")]}),
     "f32_dkdv_three_parts": ("flash_bwd", {"hopper.cuh": [_F32_THREE_PARTS]}),
+    "f32_dq_shipped": ("flash_bwd", {}),
+    # One block an SM with a 64-column kv tile (129 KB), as the bf16 dQ's
+    # first design.
+    "f32_dq_one_block_bk64": ("flash_bwd", {"flash_bwd.cu": [
+        _F32_DQ_ONE_BLOCK, _f32_dq_tile(64, "32, 2", "64, 2")]}),
+    "f32_dq_unstaged": ("flash_bwd", {"flash_bwd.cu": _F32_DQ_UNSTAGED}),
+    "f32_dq_three_parts": ("flash_bwd", {
+        "hopper.cuh": [_F32_THREE_PARTS],
+        "flash_bwd.cu": [_F32_DQ_ONE_BLOCK]}),
+    # D = 256: the shipped 16-column kv tile with staging, against a
+    # 32-column tile split straight from global memory (both 193 KB).
+    "f32_dq_d256_shipped": ("flash_bwd", {}),
+    "f32_dq_d256_unstaged_bk32": ("flash_bwd", {"flash_bwd.cu": [
+        *_F32_DQ_UNSTAGED, _f32_dq_tile(256, "16, 1", "32, 1")]}),
 }
 
 
@@ -143,6 +173,11 @@ def _kind(name: str):
     f32 = name.startswith("f32_")
     return (name.removeprefix("f32_").split("_")[0],
             "float32" if f32 else "bfloat16")
+
+
+def _head_dim(name: str) -> int:
+    """The head dim a variant is checked and timed at."""
+    return 256 if "_d256_" in name else 64
 
 
 def build_variants() -> dict:
@@ -171,7 +206,7 @@ def build_variants() -> dict:
         if proc.returncode != 0:
             raise AssertionError(f"{name}: nvcc failed\n{stderr[-3000:]}")
         ptxas = {k: v for k, v in cs._ptxas_by_kernel(stdout + stderr).items()
-                 if "<64," in k and "_wgmma" in k}
+                 if f"<{_head_dim(name)}," in k and "_wgmma" in k}
         cs.emit("study_build", variant=name, ptxas=ptxas)
         source = VARIANTS[name][0]
         libs[name] = ctypes.CDLL(str(root / name / f"lib{source}.so"))
@@ -196,19 +231,21 @@ class Swapped:
 
 def _check(name: str) -> float:
     """The variant against the plain version at KERNEL_TOL of its dtype on
-    the flagship shape, causal, and a ragged grouped-kv shape."""
+    the flagship shape, causal, and a ragged grouped-kv shape, at its head
+    dim."""
     import torch
 
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
 
     kind, dtype = _kind(name)
+    D = _head_dim(name)
     worst = 0.0
     for B, S, H, Hkv, causal in ((8, 2048, 8, 8, False), (2, 2048, 8, 8, True),
                                  (2, 130, 8, 1, True)):
-        q, k, v, do, lse, delta = cs._bwd_inputs(B, S, H, Hkv, 64,
+        q, k, v, do, lse, delta = cs._bwd_inputs(B, S, H, Hkv, D,
                                                  getattr(torch, dtype), None,
                                                  causal, S + H)
-        s = 64 ** -0.5
+        s = D ** -0.5
         if kind == "fwd":
             got = fa.flash_forward(q, k, v, s, causal)
             want = fa.flash_attention_reference(q, k, v, s, causal)[0]
@@ -231,19 +268,19 @@ def _check(name: str) -> float:
 
 
 def _timings(libs: dict) -> dict:
-    """Each variant's ms at the flagship shape in its dtype, in turns
-    (forward, dK/dV and dQ variants each with their own kind)."""
+    """Each variant's ms at the flagship shape in its dtype and head dim,
+    in turns (forward, dK/dV and dQ variants each with their own kind)."""
     import torch
 
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
 
-    B, S, H, D = 8, 2048, 8, 64
+    B, S, H = 8, 2048, 8
     calls = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype, D in {(_kind(n)[1], _head_dim(n)) for n in libs}:
         q, k, v, do, lse, delta = cs._bwd_inputs(
             B, S, H, H, D, getattr(torch, dtype), None, False, 4321)
         args = (q, k, v, lse, do, delta, D ** -0.5, False)
-        calls[dtype] = {
+        calls[dtype, D] = {
             "fwd": lambda q=q, k=k, v=v: fa.flash_forward(q, k, v),
             "dkdv": lambda args=args: fa.flash_bwd_dkdv(*args),
             "dq": lambda args=args: fa.flash_bwd_dq(*args),
@@ -254,7 +291,8 @@ def _timings(libs: dict) -> dict:
         for name in order:
             kind, dtype = _kind(name)
             with Swapped(VARIANTS[name][0], libs[name]):
-                times[name].append(cs.cuda_ms(calls[dtype][kind], iters=30))
+                times[name].append(cs.cuda_ms(
+                    calls[dtype, _head_dim(name)][kind], iters=30))
     return times
 
 

@@ -22,13 +22,12 @@ nonzero; nothing is caught and passed over):
    timed at the flagship training shape, where both bf16 kernels are
    also rerun and must give the same bits; then B*H = 65544 through all
    three kernels in f32 and bf16 (the grid's batch x heads axis past
-   65535).  kernel_f32 — the f32 kernels (forward and dK/dV as
-   split-precision tensor-core kernels, dQ on the CUDA cores) held against
-   their plain versions and timed at the flagship shape beside the plain
-   versions and SDPA in f32, with their registers, spills and HGMMA
-   counts and a bit-identical rerun of dK/dV; then all three and SDPA
-   timed at the README quickstart's shapes (batch 32, S = 50, D = 8, 32,
-   128).
+   65535).  kernel_f32 — the three f32 kernels (split-precision
+   tensor-core kernels) held against their plain versions and timed at
+   the flagship shape beside the plain versions and SDPA in f32, with
+   their registers, spills and HGMMA counts and bit-identical reruns of
+   dK/dV and dQ; then all three and SDPA timed at the README quickstart's
+   shapes (batch 32, S = 50, D = 8, 32, 128).
 4. serve  — the bench flagship transformer (d_model 512, 8 heads, 4
    layers, seq 2048, bf16, flash attention) written as a bundle with
    seeded weights, loaded back and served over HTTP by the port's
@@ -47,7 +46,7 @@ nonzero; nothing is caught and passed over):
    four profiles behind a discarded warm-up step each, two of which must
    agree on every kernel's count) and its device idle share (CUDA
    events); the same profile of one f32 step (``train_f32_step``), which
-   must run the f32 tensor-core forward and dK/dV kernels.
+   must run the three f32 tensor-core kernels.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -208,8 +207,8 @@ def _ptxas_by_kernel(log: str) -> dict:
 
 def _layout(t, layout: str):
     """``t`` [B, S, H, D] as is ("dense"), or the same values stored as
-    [B, H, D, S] ("transposed": D is not innermost, so the bf16 kernels
-    take the wrapper's conforming copy)."""
+    [B, H, D, S] ("transposed": D is not innermost, so the kernels take
+    the wrapper's conforming copy)."""
     if layout == "dense":
         return t
     return t.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
@@ -267,13 +266,12 @@ def _rel_err(got, want) -> float:
     return (got.float() - want).abs().max().item() / (top if top > 0 else 1.0)
 
 
-# Relative to the largest entry (_rel_err).  f32: the forward and dK/dV kernels
-# take each product as three bf16 products of split parts, every operand to
-# 2**-16 (csrc/hopper.cuh), and read 1e-5 to 4e-5; the dQ kernel (CUDA-core
-# FMAs) differs from its plain version only in summation order, ~1e-6.  bf16:
-# both sides accumulate in f32 and round each output entry to bf16 once, at
-# most one bf16 ulp apart, at most 2**-7 = 7.8e-3 of the largest entry.  The
-# tensor-core kernels round where the plain versions do not: the forward
+# Relative to the largest entry (_rel_err).  f32: the kernels take each
+# product as three bf16 products of split parts, every operand to 2**-16
+# (csrc/hopper.cuh), and read 1e-5 to 4e-5.  bf16: both sides accumulate in
+# f32 and round each output entry to bf16 once, at most one bf16 ulp apart,
+# at most 2**-7 = 7.8e-3 of the largest entry.  The bf16 kernels round
+# where the plain versions do not: the forward
 # carries P into P V as two bf16 parts (high and the rounded rest, P to about
 # 2**-16), the dK/dV kernel rounds P^T and dS^T to bf16 before P^T dO and dS^T
 # Q, and the dQ kernel rounds dS to bf16 before dS K (relative 2**-9 per entry,
@@ -387,7 +385,8 @@ def phase_kernel_bwd():
     # kernels, like their plain version, accumulate in f32 and round once.
     tol = {dt: KERNEL_TOL[str(dt).split(".")[1]]
            for dt in (torch.float32, torch.bfloat16)}
-    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst = {str(dt).split(".")[1]: {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+             for dt in (torch.float32, torch.bfloat16)}
     cases = [
         (dtype, causal, H, Hkv, D, S, scale, "dense")
         for dtype in (torch.float32, torch.bfloat16)
@@ -397,8 +396,8 @@ def phase_kernel_bwd():
         for S in (96, 130, 2048)
         for scale in (None, 0.37)
     ] + [
-        # q, k, v and dO stored [B, H, D, S]: the bf16 kernels take the
-        # wrapper's conforming copy, the f32 ones read the strides.
+        # q, k, v and dO stored [B, H, D, S]: the kernels take the
+        # wrapper's conforming copy.
         (dtype, causal, H, Hkv, D, S, None, "transposed")
         for dtype in (torch.float32, torch.bfloat16)
         for causal in (False, True)
@@ -423,7 +422,8 @@ def phase_kernel_bwd():
                     f"dtype={dtype} causal={causal} H={H} Hkv={Hkv} D={D} "
                     f"S={S} scale={scale} layout={layout}: rel err {err} "
                     f"(tol {tol[dtype]})")
-            worst[name] = max(worst[name], err)
+            by_dtype = worst[str(dtype).split(".")[1]]
+            by_dtype[name] = max(by_dtype[name], err)
         del q, k, v, do, lse, delta, dq, dk, dv, ref
     n = len(cases)
 
@@ -539,16 +539,16 @@ def _grid_past_65535() -> dict:
             "max_rel_err": readings}
 
 
-# The f32 kernels as ptxas and cuobjdump name their instantiations: the
-# forward and dK/dV on the tensor cores (split bf16), dQ on the CUDA cores.
+# The f32 kernels as ptxas and cuobjdump name their instantiations, all
+# on the tensor cores as split bf16.
 F32_KERNELS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel_wgmma_f32<"),
                "flash_bwd_dkdv": ("flash_bwd",
                                   "flash_bwd_dkdv_kernel_wgmma_f32<"),
-               "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_kernel<f32,")}
+               "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_kernel_wgmma_f32<")}
 # The rate that bounds each f32 kernel: the split's third of the bf16
-# tensor-core peak, or the f32 CUDA-core peak.
+# tensor-core peak.
 F32_RATE = {"flash_fwd": "float32_split", "flash_bwd_dkdv": "float32_split",
-            "flash_bwd_dq": "float32"}
+            "flash_bwd_dq": "float32_split"}
 
 
 def _f32_build(build) -> dict:
@@ -582,9 +582,10 @@ def _f32_timing(name, kernel, plain, library, flops, nbytes, iters) -> dict:
 
 def _f32_calls(B, S, H, D, seed):
     """(readings against the plain versions, {kernel: (kernel call, plain
-    call, library call, flops, bytes)}, dK/dV output) for f32 inputs of
-    one shape: the library call is SDPA's forward, or its backward
-    (``autograd.grad``) for the gradients the kernel computes."""
+    call, library call, flops, bytes)}, (arguments, dK/dV output, dQ
+    output)) for f32 inputs of one shape: the library call is SDPA's
+    forward, or its backward (``autograd.grad``) for the gradients the
+    kernel computes."""
     import torch
     import torch.nn.functional as F
 
@@ -595,12 +596,12 @@ def _f32_calls(B, S, H, D, seed):
                                           None, False, seed)
     args = (q, k, v, lse, do, delta, s, False)
     dkdv = fa.flash_bwd_dkdv(*args)
+    dq = fa.flash_bwd_dq(*args)
     pairs = {
         "flash_fwd": ((fa.flash_forward(q, k, v),),
                       fa.flash_attention_reference(q, k, v, s, False)[:1]),
         "flash_bwd_dkdv": (dkdv, fa.flash_bwd_dkdv_reference(*args)),
-        "flash_bwd_dq": ((fa.flash_bwd_dq(*args),),
-                         (fa.flash_bwd_dq_reference(*args),)),
+        "flash_bwd_dq": ((dq,), (fa.flash_bwd_dq_reference(*args),)),
     }
     torch.cuda.synchronize()
     rel = {n: max(_rel_err(a, b) for a, b in zip(*p)) for n, p in pairs.items()}
@@ -633,7 +634,7 @@ def _f32_calls(B, S, H, D, seed):
                              sdpa_out, (qt,), dot, retain_graph=True),
                          6.0 * B * H * S * S * D, 5 * tensor + 2 * rows),
     }
-    return {"rel": rel, "abs": abs_err}, calls, (args, dkdv)
+    return {"rel": rel, "abs": abs_err}, calls, (args, dkdv, dq)
 
 
 # The README quickstart's attention (README.md:39-64): batch 32, seq 50,
@@ -643,12 +644,12 @@ QUICKSTART = ((64, 8), (128, 4), (256, 2))
 
 
 def phase_kernel_f32(build):
-    """The f32 kernels at the flagship shape: the forward and dK/dV
-    (split-precision tensor-core kernels) and dQ (CUDA cores) held against
-    their plain versions, dK/dV rerun for identical bits, and each timed
-    beside its plain version and SDPA in f32; bound at its own rate
-    (F32_RATE), with the share of the f32 CUDA-core bound beside it (what
-    earlier readings used).  Then the same at the quickstart's shapes,
+    """The f32 kernels at the flagship shape: the forward, dK/dV and dQ
+    (split-precision tensor-core kernels) held against their plain
+    versions, dK/dV and dQ rerun for identical bits, and each timed beside
+    its plain version and SDPA in f32; bound at its own rate (F32_RATE),
+    with the share of the f32 CUDA-core bound beside it (what earlier
+    readings used).  Then the same at the quickstart's shapes,
     where the kernel's and SDPA's device times (device_ms) stand beside
     the times of back-to-back calls, which there are the host's."""
     import torch
@@ -656,13 +657,18 @@ def phase_kernel_f32(build):
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
 
     B, S, H, D = 8, FLAGSHIP["max_seq_length"], FLAGSHIP["num_heads"], 64
-    err, calls, (args, (dk, dv)) = _f32_calls(B, S, H, D, 4322)
+    err, calls, (args, (dk, dv), dq) = _f32_calls(B, S, H, D, 4322)
     # No atomics: a rerun gives the same bits.
     dk2, dv2 = fa.flash_bwd_dkdv(*args)
     rerun = max((dk2 - dk).abs().max().item(), (dv2 - dv).abs().max().item())
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"f32 flash_bwd_dkdv: a rerun differs by {rerun}")
-    del dk, dv, dk2, dv2
+    dq2 = fa.flash_bwd_dq(*args)
+    rerun_dq = (dq2 - dq).abs().max().item()
+    if not torch.equal(dq, dq2):
+        raise AssertionError(f"f32 flash_bwd_dq: a rerun differs by "
+                             f"{rerun_dq}")
+    del dk, dv, dk2, dv2, dq, dq2
     timing = {}
     for name, (kernel, plain, library, flops, nbytes) in calls.items():
         timing[name] = {
@@ -687,7 +693,8 @@ def phase_kernel_f32(build):
         del calls
     emit("kernel_f32", card=torch.cuda.get_device_name(0),
          shape=[B, S, H, D], dtype="float32",
-         dkdv_rerun_max_abs_diff=rerun, build=_f32_build(build),
+         dkdv_rerun_max_abs_diff=rerun, dq_rerun_max_abs_diff=rerun_dq,
+         build=_f32_build(build),
          quickstart=quickstart, **timing)
     return timing
 
@@ -1040,8 +1047,8 @@ PLANTED_FAULTS = {"dq_x0.9": {"dq": 0.9}, "dk_x0.9": {"dk": 0.9},
 STEP_FAULTS = ("dq_x0.9", "dk_x0.9", "dv_x0.9")
 # Whole-step limits on the kernel step against the plain one, per
 # parameter (_grad_err's ``worst``), set from readings on an H100 80GB
-# HBM3 (PERF.md).  f32: the paths differ by the split products of the
-# forward and dK/dV kernels and in summation order, and read 1.7e-5.
+# HBM3 (PERF.md).  f32: the paths differ by the kernels' split products
+# and in summation order, and read 1.7e-5 to 1.8e-5.
 # bf16: on the step's own activations the backward kernels agree bit for
 # bit with their plain version and the forward within one ulp,
 # but those one-ulp differences, carried through four bf16 layers and the
@@ -1081,16 +1088,15 @@ def _grad_check(train) -> dict:
 
 
 # The kernel each flash group of a step must run, by compute dtype, as
-# (what its name holds, what it must not hold): every bf16 kernel on the
-# tensor cores; the f32 forward and dK/dV on the tensor cores as split
-# bf16, dQ on the CUDA cores.
+# (what its name holds, what it must not hold): every kernel on the
+# tensor cores, the f32 ones as split bf16.
 STEP_KERNELS = {
     "bfloat16": {"flash_fwd": ("flash_fwd_kernel_wgmma", "_f32"),
                  "flash_bwd_dkdv": ("flash_bwd_dkdv_kernel_wgmma", "_f32"),
                  "flash_bwd_dq": ("flash_bwd_dq_kernel_wgmma", "_f32")},
     "float32": {"flash_fwd": ("flash_fwd_kernel_wgmma_f32", None),
                 "flash_bwd_dkdv": ("flash_bwd_dkdv_kernel_wgmma_f32", None),
-                "flash_bwd_dq": ("flash_bwd_dq_kernel", "_wgmma")},
+                "flash_bwd_dq": ("flash_bwd_dq_kernel_wgmma_f32", None)},
 }
 
 
@@ -1307,6 +1313,7 @@ def main() -> int:
         "flash_bwd_dkdv": ("flash_bwd.cu", "pallas_attention.py:279"),
         "flash_bwd_dq": ("flash_bwd.cu", "pallas_attention.py:343"),
     }
+    f32_build = _f32_build(build)
     kernels = []
     for name, (source, replaces) in sources.items():
         t = timings[name]
@@ -1320,12 +1327,13 @@ def main() -> int:
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},
             "bound_share": t["bound_ms"] / t["ms"],
-            # The same function's f32 kernel (the forward and dK/dV on the
-            # tensor cores as split bf16, dQ on the CUDA cores), launched
-            # by the profiled f32 step; its bound at its own rate
-            # (F32_RATE), and its share of the f32 CUDA-core bound.
+            # The same function's f32 kernel (on the tensor cores as split
+            # bf16), launched by the profiled f32 step; its bound at its
+            # own rate (F32_RATE), its share of the f32 CUDA-core bound,
+            # and each instantiation's registers, spills and HGMMA count.
             "f32": {"kernel": F32_KERNELS[name][1].rstrip("<,"),
                     "launches_f32_step": launches_f32[name],
+                    "build": f32_build[name],
                     **{k: timings_f32[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "tflops", "bound_share",

@@ -77,10 +77,19 @@
 // rows at D = 128 and 16 at D = 256 (registers, shared memory).  No
 // atomics.  The wrapper hands in conforming rows, as for bf16.
 //
-// f32 dq: CUDA-core FMAs from tiles staged in shared memory as f32,
-// reading every tensor through its element strides (autograd may hand in
-// an expanded dO with stride 0) and masking the ragged edges of S and D,
-// so any layout and any D in 1..256 work.
+// f32 dq: `flash_bwd_dq_kernel_wgmma_f32`, the bf16 dq design with every
+// operand split as in f32 dkdv.  S = Q K^T, dP = dO V^T and dQ += dS K are
+// each three bf16 wgmmas of the parts.  Q and dO are split once from
+// global memory and stay resident; each kv tile's K and V land by cp.async
+// in f32 staging tiles while the previous tile computes, and one pass
+// splits them.  dS is split in registers into two A operands: rounded to
+// bf16 once, as bf16 dq does, it would leave dQ outside the f32 tolerance.
+// Bound: the split does three bf16 products per product, so the flagship's
+// 103 GFLOP take at least 0.31 ms at a third of the bf16 peak (against
+// 1.54 ms at the f32 CUDA-core peak).  Tiles: 32 kv columns (16 at
+// D = 256, one warpgroup), so that the part and staging tiles fit shared
+// memory and two blocks share an SM at D <= 64.  No atomics.  The wrapper
+// hands in conforming rows, as for every kernel here.
 //
 // Grid.  Every launch puts the (b, head) index on gridDim.x and the tile
 // on gridDim.y (hopper.cuh: kMaxGridX, kMaxGridY), so B*H is not capped
@@ -97,233 +106,9 @@
 
 namespace {
 
-constexpr int kColGroups = 8;   // threads sharing one row group
-constexpr int kRowGroups = 32;  // row groups per block
-constexpr int kThreads = kColGroups * kRowGroups;
-
 struct Strides {
   long long b, s, h, d;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-
-// N consecutive floats from shared memory, in 16- or 8-byte loads.
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + i);
-      out[i] = t.x;
-      out[i + 1] = t.y;
-      out[i + 2] = t.z;
-      out[i + 3] = t.w;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(p + i);
-      out[i] = t.x;
-      out[i + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = p[i];
-  }
-}
-
-// `rows` rows of a [.., S, .., D] tensor starting at row `s0`, stored
-// transposed as dst[d * pitch + r] in f32, zero past S and D.
-template <typename T, int DMAX>
-__device__ __forceinline__ void stage_transposed(float* dst, int pitch,
-                                                 const T* src, Strides st,
-                                                 int s0, int rows, int S,
-                                                 int D) {
-  for (int idx = threadIdx.x; idx < rows * DMAX; idx += kThreads) {
-    const int r = idx / DMAX;
-    const int d = idx % DMAX;
-    const int s = s0 + r;
-    float val = 0.f;
-    if (s < S && d < D) val = to_f32(src[s * st.s + d * st.d]);
-    dst[d * pitch + r] = val;
-  }
-}
-
-// Per-row lse and delta of a q tile; rows past S get lse = -inf, which
-// zeroes their P and dS.
-__device__ __forceinline__ void stage_rows(float* s_lse, float* s_delta,
-                                           const float* lse,
-                                           const float* delta, int q0,
-                                           int rows, int S) {
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
-    const int s = q0 + r;
-    s_lse[r] = s < S ? lse[s] : -INFINITY;
-    s_delta[r] = s < S ? delta[s] : 0.f;
-  }
-}
-
-// `_bwd_recompute` for the (q tile, kv tile) pair staged in shared memory:
-// this thread's RQ x CS block of P and dS, rows rg*RQ + i and columns
-// cg*CS + j.  sQT/sdOT are [DMAX][QP], sKT/sVT [DMAX][KP].
-template <int DMAX, int RQ, int CS>
-__device__ __forceinline__ void recompute(
-    const float* sQT, const float* sdOT, int QP, const float* sKT,
-    const float* sVT, int KP, const float* s_lse, const float* s_delta,
-    int rg, int cg, int q0, int k0, int S, float scale, int causal,
-    float (&p)[RQ][CS], float (&ds)[RQ][CS]) {
-  float dp[RQ][CS];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < CS; ++j) {
-      p[i][j] = 0.f;
-      dp[i][j] = 0.f;
-    }
-#pragma unroll 2
-  for (int d = 0; d < DMAX; ++d) {
-    float qr[RQ], dor[RQ], kc[CS], vc[CS];
-    load_vec<RQ>(sQT + d * QP + rg * RQ, qr);
-    load_vec<RQ>(sdOT + d * QP + rg * RQ, dor);
-    load_vec<CS>(sKT + d * KP + cg * CS, kc);
-    load_vec<CS>(sVT + d * KP + cg * CS, vc);
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        p[i][j] = fmaf(qr[i], kc[j], p[i][j]);
-        dp[i][j] = fmaf(dor[i], vc[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = rg * RQ + i;
-    const int row = q0 + r;
-    const float l = s_lse[r];
-    const float dl = s_delta[r];
-#pragma unroll
-    for (int j = 0; j < CS; ++j) {
-      const int col = k0 + cg * CS + j;
-      const bool live = col < S && !(causal && col > row) && isfinite(l);
-      const float pv = live ? expf(p[i][j] * scale - l) : 0.f;
-      p[i][j] = pv;
-      ds[i][j] = pv * (dp[i][j] - dl) * scale;
-    }
-  }
-}
-
-template <int DMAX, int BQ, int BK>
-constexpr size_t dq_smem_bytes() {
-  // sQT, sdOT [DMAX][BQ+4]; sKT, sVT [DMAX][BK+4]; sdST [BK][BQ+4];
-  // lse, delta [BQ].
-  return sizeof(float) * (size_t)(2 * DMAX * (BQ + 4) + 2 * DMAX * (BK + 4) +
-                                  BK * (BQ + 4) + 2 * BQ);
-}
-
-template <typename T, int DMAX, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int S, int H, int Hkv, int D, Strides qs, Strides ks,
-                        Strides vs, Strides dos, float scale, int causal) {
-  constexpr int RQ = BQ / kRowGroups;   // q rows per thread
-  constexpr int CS = BK / kColGroups;   // kv columns per thread (scores)
-  constexpr int CO = DMAX / kColGroups; // head-dim columns per thread (dQ)
-  constexpr int QP = BQ + 4;
-  constexpr int KP = BK + 4;
-  static_assert(RQ >= 1 && CS >= 1 && CO >= 1, "tile too small");
-
-  extern __shared__ float4 smem4[];
-  float* sQT = reinterpret_cast<float*>(smem4);  // [DMAX][QP]
-  float* sdOT = sQT + DMAX * QP;                 // [DMAX][QP]
-  float* sKT = sdOT + DMAX * QP;                 // [DMAX][KP]
-  float* sVT = sKT + DMAX * KP;                  // [DMAX][KP]
-  float* sdST = sVT + DMAX * KP;                 // [BK][QP]
-  float* s_lse = sdST + BK * QP;                 // [BQ]
-  float* s_delta = s_lse + BQ;                   // [BQ]
-
-  const int tid = threadIdx.x;
-  const int rg = tid / kColGroups;
-  const int cg = tid % kColGroups;
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
-  const int q0 = blockIdx.y * BQ;
-
-  stage_transposed<T, DMAX>(sQT, QP, q + b * qs.b + h * qs.h, qs, q0, BQ, S,
-                            D);
-  stage_transposed<T, DMAX>(sdOT, QP, dout + b * dos.b + h * dos.h, dos, q0,
-                            BQ, S, D);
-  stage_rows(s_lse, s_delta, lse + (long long)bh * S,
-             delta + (long long)bh * S, q0, BQ, S);
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-
-  // This thread's dQ rows rg*RQ + i, head-dim columns cg + 8*j.
-  float acc[RQ][CO];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < CO; ++j) acc[i][j] = 0.f;
-
-  int n_kv = (S + BK - 1) / BK;
-  if (causal) {
-    // kv tile t is live iff t*BK <= q0 + BQ - 1.
-    n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
-  }
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers are done
-    stage_transposed<T, DMAX>(sKT, KP, kb, ks, k0, BK, S, D);
-    stage_transposed<T, DMAX>(sVT, KP, vb, vs, k0, BK, S, D);
-    __syncthreads();
-
-    float p[RQ][CS], ds[RQ][CS];
-    recompute<DMAX, RQ, CS>(sQT, sdOT, QP, sKT, sVT, KP, s_lse, s_delta, rg,
-                            cg, q0, k0, S, scale, causal, p, ds);
-#pragma unroll
-    for (int j = 0; j < CS; ++j)
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-        sdST[(cg * CS + j) * QP + rg * RQ + i] = ds[i][j];
-    __syncthreads();
-
-    // dQ += dS K over the tile's kv rows.
-#pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      float dsr[RQ], kd[CO];
-      load_vec<RQ>(sdST + c * QP + rg * RQ, dsr);
-#pragma unroll
-      for (int j = 0; j < CO; ++j) kd[j] = sKT[(cg + kColGroups * j) * KP + c];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CO; ++j) acc[i][j] = fmaf(dsr[i], kd[j], acc[i][j]);
-    }
-  }
-
-  // dQ: contiguous [B, S, H, D].
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + rg * RQ + i;
-    if (row >= S) continue;
-    const long long base = (((long long)b * S + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < CO; ++j) {
-      const int d = cg + kColGroups * j;
-      if (d < D) dq[base + d] = from_f32<T>(acc[i][j]);
-    }
-  }
-}
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -334,23 +119,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-template <typename T, int DMAX, int BQ, int BK>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<DMAX, BQ, BK>();
-  auto kern = flash_bwd_dq_kernel<T, DMAX, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.S + BQ - 1) / BQ);
-  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.S, a.H, a.Hkv, a.D, a.qs, a.ks, a.vs,
-      a.dos, a.scale, a.causal);
-  return cudaGetLastError();
-}
 
 // ---- bf16 dK/dV on the tensor cores --------------------------------------
 
@@ -1060,17 +828,219 @@ cudaError_t dispatch_dq_wgmma(const Args& a, cudaStream_t st) {
   return launch_dq_wgmma<256, 32, 1>(a, st);
 }
 
-// CUDA-core dq tiles per head-dim bucket (f32);
-// ops/flash_attention.py::BACKWARD_TILES["flash_bwd_dq"]["float32"]
-// mirrors this table.  Untuned: the first correct choice that fits shared
-// memory.
-cudaError_t dispatch_dq_cuda_core(const Args& a, cudaStream_t st) {
-  if (a.D <= 32) return launch_dq<float, 32, 64, 64>(a, st);
-  if (a.D <= 64) return launch_dq<float, 64, 64, 64>(a, st);
-  if (a.D <= 128) return launch_dq<float, 128, 64, 64>(a, st);
-  return launch_dq<float, 256, 32, 32>(a, st);
+// ---- f32 dQ on the tensor cores, as split bf16 ---------------------------
+
+template <int DMAX, int BK, int NWG>
+constexpr size_t dq_f32_smem_bytes() {
+  // Q and dO [64 * NWG x DMAX] and K and V [BK x DMAX] as kSplitParts bf16
+  // tiles each, the f32 staging tiles of K and V, and the slack that
+  // aligns the base.
+  return (size_t)2 * hopper::kSplitParts * DMAX * (2 * 64 * NWG + 2 * BK) +
+         (size_t)8 * BK * DMAX + 1024;
 }
 
+template <int DMAX, int BK, int NWG>
+__global__ void __launch_bounds__(128 * NWG, DMAX == 64 ? 2 : 1)
+    flash_bwd_dq_kernel_wgmma_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int S, int H, int Hkv, int D, Strides qs,
+    Strides ks, Strides vs, Strides dos, float scale, int causal) {
+  using namespace hopper;
+  constexpr int BQ = 64 * NWG;
+  constexpr int NT = 128 * NWG;
+  constexpr int NCH = DMAX < 128 ? DMAX : 128;  // dQ columns per dS K wgmma
+  constexpr int P = kSplitParts;
+  constexpr uint32_t kQBytes = BQ * DMAX * 2;  // one bf16 part
+  constexpr uint32_t kKVBytes = BK * DMAX * 2;
+  constexpr uint32_t kStageBytes = BK * DMAX * 4;
+  static_assert(DMAX % 64 == 0 && BK % 16 == 0, "tiles");
+
+  // The parts of Q, dO, K and V (part i of Q at sQ + i * kQBytes, ...),
+  // then the f32 staging tiles of K and V.
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdO = sQ + P * kQBytes;
+  const uint32_t sK = sdO + P * kQBytes;
+  const uint32_t sV = sK + P * kKVBytes;
+  const uint32_t sKf = sV + P * kKVBytes;
+  const uint32_t sVf = sKf + kStageBytes;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;  // row within the warp's 8-row half
+  const int c4 = tid % 4;        // column pair within an 8-column chunk
+  const int bh = blockIdx.x;     // b * H + head
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hkv);  // _kv_row_map: kv row b*Hkv + h // group
+  const int q0 = blockIdx.y * BQ;
+  const int row0 = q0 + 64 * wg + 16 * warp + g;  // and row0 + 8
+
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  auto stage_kv = [&](int t) {
+    stage_tile_f32<DMAX, BK, NT>(sKf, kb, ks.s, t * BK, S, D, tid);
+    stage_tile_f32<DMAX, BK, NT>(sVf, vb, vs.s, t * BK, S, D, tid);
+    cp_async_commit();
+  };
+
+  int n_kv = (S + BK - 1) / BK;
+  if (causal) {
+    // kv tile t is live iff t*BK <= q0 + BQ - 1.
+    n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
+  }
+
+  // kv tile 0 lands while Q and dO are split.
+  stage_kv(0);
+  split_tile_global<DMAX, BQ, NT>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, S,
+                                  D, tid);
+  split_tile_global<DMAX, BQ, NT>(sdO, dout + b * dos.b + h * dos.h, dos.s,
+                                  q0, S, D, tid);
+
+  // lse (log2 domain) and delta of this thread's two rows, as in the bf16
+  // kernel: lse2 = +inf for rows past S and rows with lse = -inf.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float l = row < S ? lse[(long long)bh * S + row] : -INFINITY;
+    lse2[r] = isfinite(l) ? l * kLog2e : INFINITY;
+    dl[r] = row < S ? delta[(long long)bh * S + row] : 0.f;
+  }
+
+  float acc[DMAX / 2];
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int t = 0; t < n_kv; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is staged; every warpgroup is done with t - 1
+    split_tile_staged<DMAX, BK, NT>(sK, sKf, tid);
+    split_tile_staged<DMAX, BK, NT>(sV, sVf, tid);
+    fence_proxy_async();
+    __syncthreads();  // the part tiles are visible to wgmma; staging is free
+    if (t + 1 < n_kv) stage_kv(t + 1);
+
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows: Qi Kj and
+    // dOi Vj over i + j < P.
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;  // within the 128-byte row
+      const uint32_t q_off = (kk / 4) * BQ * 128 + wg * 64 * 128 + col;
+      const uint32_t kv_off = (kk / 4) * BK * 128 + col;
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int j = 0; i + j < P; ++j) {
+          Wgmma<BK>::ss(s, desc_k_major(sQ + i * kQBytes + q_off),
+                        desc_k_major(sK + j * kKVBytes + kv_off),
+                        kk + i + j > 0);
+          Wgmma<BK>::ss(dp, desc_k_major(sdO + i * kQBytes + q_off),
+                        desc_k_major(sV + j * kKVBytes + kv_off),
+                        kk + i + j > 0);
+        }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P and dS on the fragments, as in the bf16 kernel.
+    const int k0 = t * BK;
+    if (k0 + BK > S || (causal && k0 + BK - 1 > q0 + 64 * wg))
+      recompute_rows_wgmma<true, BK>(s, dp, lse2, dl, k0, 2 * c4, row0, S,
+                                     causal, sl2, scale);
+    else
+      recompute_rows_wgmma<false, BK>(s, dp, lse2, dl, k0, 2 * c4, row0, S,
+                                      causal, sl2, scale);
+
+    // dQ += dS K: dSi Kj over i + j < P, dS split in registers as the A
+    // operands and K's parts read MN-major from the same tiles.
+    uint32_t ads[P][BK / 16][4];
+    split_fragments<BK>(dp, ads);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int nc = 0; nc < DMAX / NCH; ++nc) {
+        float(&o)[NCH / 2] =
+            *reinterpret_cast<float(*)[NCH / 2]>(&acc[nc * NCH / 2]);
+        const uint32_t off = kk * 2048 + nc * (NCH / 64) * BK * 128;
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+#pragma unroll
+          for (int j = 0; i + j < P; ++j)
+            Wgmma<NCH>::rs(o, ads[i][kk],
+                           desc_mn_major(sK + j * kKVBytes + off, BK * 128));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // dQ: contiguous [B, S, H, D].
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    float* out = dq + (((long long)b * S + row) * H + h) * (long long)D;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int d = 8 * j + 2 * c4;
+      if (d < D)
+        *reinterpret_cast<float2*>(out + d) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int DMAX, int BK, int NWG>
+cudaError_t launch_dq_wgmma_f32(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = dq_f32_smem_bytes<DMAX, BK, NWG>();
+  auto kern = flash_bwd_dq_kernel_wgmma_f32<DMAX, BK, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.S + 64 * NWG - 1) / (64 * NWG));
+  if (grid.y > hopper::kMaxGridY) return cudaErrorInvalidValue;
+  kern<<<grid, 128 * NWG, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.S, a.H, a.Hkv, a.D, a.qs,
+      a.ks, a.vs, a.dos, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// f32 dQ tiles per head-dim bucket, (block_q, block_k) = (64 * NWG, BK);
+// ops/flash_attention.py::BACKWARD_TILES["flash_bwd_dq"]["float32"]
+// mirrors this table.  Shared memory: 97, 193 and 193 KB.  At D <= 64 two
+// blocks share an SM (128 registers, no spill), as for the bf16 dQ and the
+// f32 forward; one block with a 64-column kv tile measured 5 % slower
+// (PERF.md).  At D = 128 the 32-column kv tile takes one SM (a 64-column
+// one would need 257 KB).  At D = 256 one warpgroup and a 16-column kv
+// tile fit the part and staging tiles; it spills, but a 32-column tile
+// split straight from global memory spilled more and ran 1.7x slower.
+cudaError_t dispatch_dq_wgmma_f32(const Args& a, cudaStream_t st) {
+  if (!hopper::tensor_core_operand(a.q, a.qs, a.D, 4) ||
+      !hopper::tensor_core_operand(a.k, a.ks, a.D, 4) ||
+      !hopper::tensor_core_operand(a.v, a.vs, a.D, 4) ||
+      !hopper::tensor_core_operand(a.dout, a.dos, a.D, 4))
+    return cudaErrorInvalidValue;
+  if (a.D <= 64) return launch_dq_wgmma_f32<64, 32, 2>(a, st);
+  if (a.D <= 128) return launch_dq_wgmma_f32<128, 32, 2>(a, st);
+  return launch_dq_wgmma_f32<256, 16, 1>(a, st);
+}
 int check(const Args& a) {
   if (a.B < 1 || a.S < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
       a.D < 1 || a.D > 256 || (long long)a.B * a.H > hopper::kMaxGridX)
@@ -1098,8 +1068,8 @@ extern "C" {
 // holds 16 element strides, (b, s, h, d) of q, k, v and dout in turn.
 // lse and delta are contiguous [B*H, S] f32; dk and dv are contiguous
 // [B, S, Hkv, D] and dq contiguous [B, S, H, D], in the input dtype.
-// Inputs of the tensor-core kernels (dkdv, and dq in bf16) must satisfy
-// tensor_core_operand (cudaErrorInvalidValue otherwise).
+// Inputs must satisfy tensor_core_operand (cudaErrorInvalidValue
+// otherwise).
 int dml_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int S, int H, int Hkv, int D,
@@ -1123,7 +1093,7 @@ int dml_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (int err = check(a)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) return (int)dispatch_dq_wgmma(a, st);
-  return (int)dispatch_dq_cuda_core(a, st);
+  return (int)dispatch_dq_wgmma_f32(a, st);
 }
 
 const char* dml_cuda_error_string(int err) {

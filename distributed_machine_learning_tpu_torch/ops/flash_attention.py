@@ -12,13 +12,11 @@ tensor takes :func:`flash_attention_reference` /
 the same functions.  Nothing falls back from one to the other.
 
 On the card every kernel picks its code by dtype.  bf16 runs on the
-tensor cores (``wgmma``).  The f32 forward and dK/dV kernels run there
-too, each f32 operand split into a bf16 high and low part and each
-product taken as three bf16 products (hi hi + hi lo + lo hi), which keeps
-f32 precision; the f32 dQ kernel runs on the CUDA cores, through strides.
-The tensor-core kernels read rows with 16-byte copies, so
-:func:`tensor_core_operands` first copies any input whose layout they
-cannot read.
+tensor cores (``wgmma``).  The f32 kernels run there too, each f32
+operand split into a bf16 high and low part and each product taken as
+three bf16 products (hi hi + hi lo + lo hi), which keeps f32 precision.
+The kernels read rows with 16-byte copies, so :func:`tensor_core_operands`
+first copies any input whose layout they cannot read.
 
 Shapes follow the JAX package: q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]``
 with ``H % Hkv == 0`` (grouped-query attention; kv is never repeated),
@@ -45,12 +43,9 @@ BACKWARD_SOURCE = "flash_bwd"
 # variants that chip_flash_study.py measured (PERF.md).  The f32 forward
 # takes the bf16 forward's tiles, the f32 dK/dV the bf16 ones but for
 # smaller q tiles at D > 64 (32 rows at D = 128, where 64 spill; 16 at
-# D = 256, what fits shared memory with the hi/lo and staging tiles).
-# The f32 dQ is the CUDA-core code, untuned beyond fitting Hopper's
-# registers and shared memory.  The TPU package's VMEM-derived caps
-# (_default_blocks there) do not apply.
-_CUDA_CORE_BACKWARD = ((32, (64, 64)), (64, (64, 64)), (128, (64, 64)),
-                       (256, (32, 32)))
+# D = 256, what fits shared memory with the hi/lo and staging tiles), and
+# the f32 dQ 32-column kv tiles (16 at D = 256) for the same reason.  The
+# TPU package's VMEM-derived caps (_default_blocks there) do not apply.
 _TENSOR_CORE_FORWARD = ((64, (128, 64)), (128, (128, 64)), (256, (64, 32)))
 KERNEL_TILES = {
     "float32": _TENSOR_CORE_FORWARD,
@@ -61,7 +56,8 @@ BACKWARD_TILES = {
         "float32": ((64, (64, 128)), (128, (32, 64)), (256, (16, 64))),
         "bfloat16": ((64, (64, 128)), (128, (64, 64)), (256, (32, 64))),
     },
-    "flash_bwd_dq": {"float32": _CUDA_CORE_BACKWARD,
+    "flash_bwd_dq": {"float32": ((64, (128, 32)), (128, (128, 32)),
+                                 (256, (64, 16))),
                      "bfloat16": ((64, (128, 32)), (128, (128, 64)),
                                   (256, (64, 32)))},
 }
@@ -467,15 +463,14 @@ def flash_bwd_dkdv(q, k, v, lse, do, delta, scale: float,
 
 def flash_bwd_dq(q, k, v, lse, do, delta, scale: float,
                  causal: bool) -> torch.Tensor:
-    """Kernel dq: ``dq``.  CUDA tensors run the kernel (f32 on the CUDA
-    cores, reading any strides); CPU tensors run the plain version."""
+    """Kernel dq: ``dq``.  ``delta`` is :func:`backward_delta`.  CUDA
+    tensors run the kernel; CPU tensors run the plain version."""
     if _on_device(q) == "cpu":
         return flash_bwd_dq_reference(q, k, v, lse, do, delta, scale, causal)
     _check_kernel_inputs(q, k, v)
     _check_dout(q, do)
     D = q.shape[-1]
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = tensor_core_operands(q, k, v, do)
+    q, k, v, do = tensor_core_operands(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("dml_flash_bwd_dq", dq_launches, q, k, v, lse, do, delta,
                 scale, causal, (dq,))

@@ -67,10 +67,9 @@ def test_kernel_reads_strided_inputs(card):
     assert (out - ref).abs().max().item() <= 2e-4
 
 
-# Relative to the largest entry (_rel_err).  f32: the forward and dK/dV
-# kernels take each product as three bf16 products of split parts (each
-# operand to 2**-16, 1e-5 to 4e-5 of the largest entry), the dQ kernel
-# differs from its plain version in summation order (~1e-6).  bf16: both
+# Relative to the largest entry (_rel_err).  f32: the kernels take each
+# product as three bf16 products of split parts (each operand to 2**-16,
+# 1e-5 to 4e-5 of the largest entry).  bf16: both
 # sides accumulate in f32 and round each entry to bf16 once, so an entry
 # differs by at most one bf16 ulp, at most 2**-7 of the largest entry.
 @pytest.mark.parametrize("dtype,rtol", [("float32", 2e-4), ("bfloat16", 2e-2)])
@@ -168,12 +167,11 @@ def test_bf16_dq_kernel_matches_plain_version(card, causal, H, Hkv, D, S,
     assert torch.equal(dq, dq2)
 
 
-# The f32 forward and dK/dV kernels run on the tensor cores with each
-# operand split into bf16 high and low parts: every head-dim bucket,
-# ragged S, grouped kv, causal masking, D = 33 and inputs stored
-# [B, H, D, S] (both through the wrapper's conforming copy), at the f32
-# tolerance (2e-4 of the largest entry); dK/dV has no atomics, so a rerun
-# gives the same bits.
+# The f32 kernels run on the tensor cores with each operand split into
+# bf16 high and low parts: every head-dim bucket, ragged S, grouped kv,
+# causal masking, D = 33 and inputs stored [B, H, D, S] (both through the
+# wrapper's conforming copy), at the f32 tolerance (2e-4 of the largest
+# entry); dK/dV and dQ have no atomics, so a rerun gives the same bits.
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("H,Hkv,D,S,layout", [
     (8, 8, 64, 130, "dense"), (8, 1, 64, 1000, "dense"),
@@ -186,7 +184,8 @@ def test_f32_tensor_core_kernels_match_plain_version(card, causal, H, Hkv,
                    for h in (H, Hkv, Hkv, H))
     if layout == "transposed":
         q, k, v, do = (_stored_transposed(x) for x in (q, k, v, do))
-    before = (fa.launches.count, fa.dkdv_launches.count)
+    before = (fa.launches.count, fa.dkdv_launches.count,
+              fa.dq_launches.count)
     out, lse = fa.flash_forward(q, k, v, 0.3, causal, with_lse=True)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, 0.3, causal)
     delta = fa.backward_delta(out, do)
@@ -194,14 +193,21 @@ def test_f32_tensor_core_kernels_match_plain_version(card, causal, H, Hkv,
     dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, lse, do, delta, 0.3, causal)
     ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(q, k, v, lse, do, delta,
                                                  0.3, causal)
+    dq = fa.flash_bwd_dq(q, k, v, lse, do, delta, 0.3, causal)
+    dq2 = fa.flash_bwd_dq(q, k, v, lse, do, delta, 0.3, causal)
+    ref_dq = fa.flash_bwd_dq_reference(q, k, v, lse, do, delta, 0.3, causal)
     torch.cuda.synchronize()
-    assert (fa.launches.count, fa.dkdv_launches.count) == (
-        before[0] + 1, before[1] + 2)
-    assert out.dtype == dk.dtype == dv.dtype == torch.float32
+    assert (fa.launches.count, fa.dkdv_launches.count,
+            fa.dq_launches.count) == (before[0] + 1, before[1] + 2,
+                                      before[2] + 2)
+    assert out.dtype == dk.dtype == dv.dtype == dq.dtype == torch.float32
+    assert dq.shape == q.shape
     assert _rel_err(out, ref_out) <= 2e-4
     assert (lse - ref_lse).abs().max().item() <= 1e-3
     assert _rel_err(dk, ref_dk) <= 2e-4 and _rel_err(dv, ref_dv) <= 2e-4
+    assert _rel_err(dq, ref_dq) <= 2e-4
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, dq2)
 
 
 @pytest.mark.parametrize("dtype,rtol", [("float32", 2e-4), ("bfloat16", 2e-2)])
@@ -247,9 +253,10 @@ def test_bf16_kernels_take_conforming_copies(card):
 
 
 def test_tensor_core_kernels_run_hgmma(card):
-    """The tensor-core kernels (bf16 forward, dK/dV and dQ; f32 forward
-    and dK/dV as split bf16) compile to Hopper's warpgroup MMA (HGMMA in
-    the SASS), where the toolkit has cuobjdump to show it."""
+    """Every kernel (bf16 forward, dK/dV and dQ; the same three in f32
+    as split bf16) is a tensor-core kernel and compiles to Hopper's
+    warpgroup MMA (HGMMA in the SASS), where the toolkit has cuobjdump to
+    show it: no library holds a CUDA-core kernel."""
     from distributed_machine_learning_tpu_torch.ops import _build
 
     fa.build_kernels()
@@ -258,15 +265,15 @@ def test_tensor_core_kernels_run_hgmma(card):
                          "flash_fwd_kernel_wgmma_f32"},
         fa.BACKWARD_SOURCE: {"flash_bwd_dkdv_kernel_wgmma",
                              "flash_bwd_dq_kernel_wgmma",
-                             "flash_bwd_dkdv_kernel_wgmma_f32"},
+                             "flash_bwd_dkdv_kernel_wgmma_f32",
+                             "flash_bwd_dq_kernel_wgmma_f32"},
     }
     for name in (fa.KERNEL_NAME, fa.BACKWARD_SOURCE):
         counts = _build.sass_counts(name)
         if counts is None:
             pytest.skip("the toolkit has no cuobjdump")
-        wgmma = {k: c for k, c in counts.items() if "_wgmma" in k}
-        assert wgmma and all(c["HGMMA"] > 0 for c in wgmma.values())
-        assert {k.split("<")[0] for k in wgmma} == expected[name]
+        assert counts and all(c["HGMMA"] > 0 for c in counts.values())
+        assert {k.split("<")[0] for k in counts} == expected[name]
 
 
 @pytest.mark.parametrize("layout", ["fused_qkv", "heads_first"])

@@ -123,15 +123,17 @@ def test_backward_raises_instead_of_a_silent_plain_gradient():
 
 def test_fixed_kernel_tile_and_shape_checks():
     bf16 = torch.bfloat16
-    # f32: the split-precision tensor-core tiles of the forward and dK/dV
-    # (a 16-row q tile for dK/dV at D > 128), the CUDA-core tiles of dQ.
+    # f32: the split-precision tensor-core tiles of every kernel (a 16-row
+    # q tile for dK/dV and a 16-column kv tile for dQ at D > 128).
     assert port._default_blocks(2048, 64) == (128, 64)
     assert port._default_blocks(2048, 256) == (64, 32)
     assert port._default_blocks(96, 16, block_q=128) == (128, 64)
     assert port._default_blocks(2048, 64, backward=True) == {
-        "flash_bwd_dkdv": (64, 128), "flash_bwd_dq": (64, 64)}
+        "flash_bwd_dkdv": (64, 128), "flash_bwd_dq": (128, 32)}
+    assert port._default_blocks(2048, 128, backward=True) == {
+        "flash_bwd_dkdv": (32, 64), "flash_bwd_dq": (128, 32)}
     assert port._default_blocks(2048, 256, backward=True) == {
-        "flash_bwd_dkdv": (16, 64), "flash_bwd_dq": (32, 32)}
+        "flash_bwd_dkdv": (16, 64), "flash_bwd_dq": (64, 16)}
     with pytest.raises(ValueError, match="flash_bwd kernels are compiled"):
         port._default_blocks(2048, 256, block_k=64, backward=True)
     with pytest.raises(ValueError, match="compiled for tiles"):
@@ -205,7 +207,7 @@ def _stored_transposed(t):
 @pytest.mark.parametrize("case", ["d33", "stride0_dout", "transposed_q",
                                   "unaligned_k"])
 def test_tensor_core_operands_pad_and_copy_without_changing_results(case):
-    """The bf16 kernels' conforming copy: inputs they cannot read in place
+    """The kernels' conforming copy: inputs they cannot read in place
     (D not a multiple of 8, a stride-0 dO, D not innermost, an unaligned
     base) become contiguous copies zero-padded in D to a multiple of 8;
     the plain forward and backward on the copies, at the original D's

@@ -12,6 +12,8 @@ same plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,11 +164,12 @@ def test_backward_tile_is_checked_before_the_forward_runs():
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
 
 
-# The f32 forward and dK/dV kernels on the card split each f32 operand x
-# into bf16 parts hi = bf16(x), lo = bf16(x - hi) and take each product
-# A B as Ahi Bhi + Ahi Blo + Alo Bhi in an f32 accumulator (the lo lo
-# term dropped): Q K^T, P V (P the max-shifted exponentials), K Q^T,
-# V dO^T, P^T dO and dS^T Q.  The tests below emulate that scheme in
+# The f32 kernels on the card split each f32 operand x into bf16 parts
+# hi = bf16(x), lo = bf16(x - hi) and take each product A B as
+# Ahi Bhi + Ahi Blo + Alo Bhi in an f32 accumulator (the lo lo term
+# dropped): Q K^T, P V (P the max-shifted exponentials), K Q^T, V dO^T,
+# P^T dO, dS^T Q, and in the dQ kernel Q K^T, dO V^T and dS K.  The tests
+# below emulate that scheme in
 # plain PyTorch and hold it against the JAX package's Pallas kernels
 # (interpret mode) at the f32 tolerance of the card (KERNEL_TOL["float32"]
 # in chip_smoke.py: 2e-4 of the largest entry), so the scheme is shown to
@@ -186,10 +189,13 @@ def _split_einsum(eq, a, b, terms=("hh", "hl", "lh")):
     return sum(torch.einsum(eq, sa[parts[x]], sb[parts[y]]) for x, y in terms)
 
 
-def _split_attention(q, k, v, do, scale, causal, terms=("hh", "hl", "lh")):
-    """The f32 kernels' arithmetic, densely: (out, dk, dv), with lse and
-    delta from the emulated forward, as the backward on the card takes
-    them from the forward kernel."""
+def _split_attention(q, k, v, do, scale, causal, terms=("hh", "hl", "lh"),
+                     dq_terms=None):
+    """The f32 kernels' arithmetic, densely: (out, dk, dv, dq), with lse
+    and delta from the emulated forward, as the backward on the card takes
+    them from the forward kernel.  dQ = sum dSi Kj reads K at each q
+    head's kv head; ``dq_terms`` (default ``terms``) names the part
+    products of dS K alone."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
@@ -209,7 +215,9 @@ def _split_attention(q, k, v, do, scale, causal, terms=("hh", "hl", "lh")):
     ds = p * (mm("bqhgd,bkhd->bhgqk", dof, v) - delta) * scale
     dv = mm("bhgqk,bqhgd->bkhd", p, dof)
     dk = mm("bhgqk,bqhgd->bkhd", ds, qf)
-    return out.reshape(B, S, H, D), dk, dv
+    dq = _split_einsum("bhgqk,bkhd->bqhgd", ds, k,
+                       terms if dq_terms is None else dq_terms)
+    return out.reshape(B, S, H, D), dk, dv, dq.reshape(B, S, H, D)
 
 
 def _pallas_out_and_grads(q, k, v, do, scale, causal):
@@ -219,8 +227,8 @@ def _pallas_out_and_grads(q, k, v, do, scale, causal):
             interpret=True),
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
     )
-    _, dk, dv = vjp(jnp.asarray(do))
-    return tuple(np.asarray(t) for t in (out, dk, dv))
+    dq, dk, dv = vjp(jnp.asarray(do))
+    return tuple(np.asarray(t) for t in (out, dk, dv, dq))
 
 
 def _rel_err(got, want):
@@ -236,11 +244,10 @@ SPLIT_CASES = {
 }
 
 
-@pytest.mark.parametrize("D", [8, 33, 64])
-@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
-def test_split_precision_scheme_meets_the_f32_limit(name, D):
-    """The split scheme's forward, dK and dV within 2e-4 of the largest
-    entry of the Pallas kernels' (S = 50, B = 2)."""
+@functools.lru_cache(maxsize=None)
+def _split_case(name, D):
+    """(emulated, Pallas) (out, dk, dv, dq) of SPLIT_CASES[name] at head
+    dim D (S = 50, B = 2), computed once for the tests that read it."""
     case = dict(SPLIT_CASES[name])
     causal = case.pop("causal", False)
     scale = case.pop("scale", None)
@@ -249,18 +256,44 @@ def test_split_precision_scheme_meets_the_f32_limit(name, D):
     want = _pallas_out_and_grads(q, k, v, do, scale, causal)
     got = _split_attention(*(torch.from_numpy(a) for a in (q, k, v, do)), s,
                            causal)
+    return tuple(g.numpy() for g in got), want
+
+
+@pytest.mark.parametrize("D", [8, 33, 64])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_precision_scheme_meets_the_f32_limit(name, D):
+    """The split scheme's forward, dK and dV within 2e-4 of the largest
+    entry of the Pallas kernels' (S = 50, B = 2)."""
+    got, want = _split_case(name, D)
     for label, g, w in zip(("out", "dk", "dv"), got, want):
         assert g.shape == w.shape, label
-        assert _rel_err(g.numpy(), w) <= F32_KERNEL_TOL, label
+        assert _rel_err(g, w) <= F32_KERNEL_TOL, label
+
+
+@pytest.mark.parametrize("D", [8, 33, 64])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_precision_dq_meets_the_f32_limit(name, D):
+    """The split scheme's dQ (S and dP as split products, dS split again
+    into parts for dS K) within 2e-4 of the largest entry of the Pallas
+    kernels' dQ, from the same vjp."""
+    got, want = _split_case(name, D)
+    assert got[3].shape == want[3].shape
+    assert _rel_err(got[3], want[3]) <= F32_KERNEL_TOL
 
 
 def test_one_bf16_product_misses_the_f32_limit():
     """The emulation can fail: taking each product as one bf16 product
     (hi hi only, what a plain bf16 or tf32-like rounding of the f32
-    operands gives) lands outside 2e-4 on the same inputs."""
+    operands gives) lands outside 2e-4 on the same inputs, and so does dQ
+    with dS rounded to bf16 once (dShi Khi + dShi Klo, every other product
+    split), as the bf16 dQ kernel rounds it."""
     q, k, v, do = _inputs(81, S=50, D=64, B=2, H=4, Hkv=2)
     want = _pallas_out_and_grads(q, k, v, do, None, True)
-    got = _split_attention(*(torch.from_numpy(a) for a in (q, k, v, do)),
-                           64 ** -0.5, True, terms=("hh",))
+    inputs = [torch.from_numpy(a) for a in (q, k, v, do)]
+    got = _split_attention(*inputs, 64 ** -0.5, True, terms=("hh",))
     assert max(_rel_err(g.numpy(), w) for g, w in zip(got, want)) > \
         F32_KERNEL_TOL
+    assert _rel_err(got[3].numpy(), want[3]) > F32_KERNEL_TOL
+    dq = _split_attention(*inputs, 64 ** -0.5, True,
+                          dq_terms=("hh", "hl"))[3]
+    assert _rel_err(dq.numpy(), want[3]) > F32_KERNEL_TOL
