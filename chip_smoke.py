@@ -47,6 +47,15 @@ nonzero; nothing is caught and passed over):
    agree on every kernel's count) and its device idle share (CUDA
    events); the same profile of one f32 step (``train_f32_step``), which
    must run the three f32 tensor-core kernels.
+7. tune   — the README quickstart through the port's ``tune.run`` at its
+   own widths (``d_model`` 64/128/256, 2/4/8 heads, 2/4 layers, all three
+   attention types, 1000 rows of seq 50 x 10, batch 32, BayesOpt, ASHA)
+   and a cut depth (8 samples of at most 4 epochs, a first point with
+   ``attention_type="flash"``): every trial must end TERMINATED, the sweep
+   must launch all three f32 flash kernels, ``best_config`` must be one of
+   the sampled configs and read back the same from the experiment
+   directory, and ``best_model()`` must reproduce the best trial's last
+   ``validation_mape`` on the card within 1e-5 of relative error.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -1289,6 +1298,137 @@ def phase_train():
     return launches, profile_f32["step_launches_by_group"]
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+# The README quickstart (README.md:39-64) at its own widths, cut in depth.
+TUNE_SAMPLES, TUNE_EPOCHS = 8, 4
+TUNE_MAPE_TOL = 1e-5
+
+
+def quickstart_sweep(tune, train, val, root: str, *, num_samples: int,
+                     num_epochs: int, grace_period: int,
+                     random_search_steps: int, **run_kwargs):
+    """README.md:42-62 through the port's ``tune.run``: the quickstart's
+    space at its own widths, ASHA and BayesOpt, the experiment under
+    ``root``.  Returns the analysis, the wall seconds and the three flash
+    kernels' launches; raises unless every trial ends TERMINATED."""
+    counters = _reset_counters()
+    t0 = time.monotonic()
+    analysis = tune.run(
+        tune.with_parameters(tune.train_regressor, train_data=train,
+                             val_data=val),
+        {
+            "model": "transformer",
+            "d_model": tune.choice([64, 128, 256]),
+            "num_heads": tune.choice([2, 4, 8]),
+            "num_layers": tune.choice([2, 4]),
+            "attention_type": tune.choice(
+                ["scaled_dot_product", "linear_attention", "flash"]),
+            "learning_rate": tune.loguniform(1e-5, 1e-2),
+            "weight_decay": tune.loguniform(1e-6, 1e-2),
+            "num_epochs": num_epochs,
+            "batch_size": 32,
+        },
+        metric="validation_mape",
+        mode="min",
+        num_samples=num_samples,
+        scheduler=tune.ASHAScheduler(max_t=num_epochs,
+                                     grace_period=grace_period,
+                                     reduction_factor=3),
+        search_alg=tune.BayesOptSearch(
+            random_search_steps=random_search_steps),
+        storage_path=root,
+        **run_kwargs,
+    )
+    wall_s = time.monotonic() - t0
+    launches = {c.name: c.count for c in counters}
+    trials = analysis.trials
+    bad = {t.trial_id: (t.status.value, (t.error or "")[-800:])
+           for t in trials if t.status.value != "TERMINATED"}
+    if len(trials) != num_samples or bad:
+        raise AssertionError(f"tune: {len(trials)} trials, not all "
+                             f"TERMINATED: {bad}")
+    return analysis, wall_s, launches
+
+
+def median_epoch_s(trials, flash: bool) -> float | None:
+    """Median ``epoch_time_s`` over the flash trials' epochs, or the
+    others'."""
+    times = [r["epoch_time_s"] for t in trials for r in t.results
+             if (t.config["attention_type"] == "flash") == flash]
+    return float(np.median(times)) if times else None
+
+
+def _best_model_mape(analysis, train, val) -> float:
+    """The best trial's newest checkpoint through ``best_model()`` and
+    the trainable's own validation pass, on the card."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.tune._regression_program \
+        import make_eval_fn, stage_data
+
+    config = analysis.best_trial.config
+    model = analysis.best_model().to("cuda")
+    data = stage_data(train, val, int(config["batch_size"]), torch.float32,
+                      torch.device("cuda"))
+    evaluate = make_eval_fn(model, str(config.get("loss_function", "mse")),
+                            data.n_val_blocks, data.eval_bs)
+    return evaluate(data.x_val, data.y_val, data.val_mask)["validation_mape"]
+
+
+def phase_tune():
+    from distributed_machine_learning_tpu_torch import tune
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+    from distributed_machine_learning_tpu_torch.tune.checkpoint import (
+        load_checkpoint,
+    )
+
+    train, val = dummy_regression_data(num_samples=1000, seq_len=50,
+                                       num_features=10)
+    with tempfile.TemporaryDirectory() as root:
+        analysis, wall_s, launches = quickstart_sweep(
+            tune, train, val, root, num_samples=TUNE_SAMPLES,
+            num_epochs=TUNE_EPOCHS, grace_period=1, random_search_steps=4,
+            points_to_evaluate=[{"attention_type": "flash"}],
+            name="quickstart", verbose=0)
+        trials = analysis.trials
+        unlaunched = [n for n, c in launches.items() if c < 1]
+        if unlaunched:
+            raise AssertionError(f"tune: the sweep launched no {unlaunched} "
+                                 f"kernel: {launches}")
+        best = analysis.best_config
+        if best not in [t.config for t in trials]:
+            raise AssertionError(f"tune: best_config {best} was not sampled")
+        reread = tune.ExperimentAnalysis.from_directory(
+            analysis.root, "validation_mape", "min")
+        if reread.best_config != best:
+            raise AssertionError(f"tune: the experiment directory gives "
+                                 f"{reread.best_config}, the run {best}")
+        trial = analysis.best_trial
+        ckpt = load_checkpoint(trial.latest_checkpoint)
+        if ckpt is None or ckpt["epoch"] != trial.training_iteration - 1:
+            raise AssertionError(f"tune: the best trial's newest checkpoint "
+                                 f"{trial.latest_checkpoint} does not load")
+        want = trial.last_result["validation_mape"]
+        got = _best_model_mape(analysis, train, val)
+        mape_rel_err = abs(got - want) / abs(want)
+        if not mape_rel_err <= TUNE_MAPE_TOL:
+            raise AssertionError(f"tune: best_model() gives validation_mape "
+                                 f"{got}, the trial reported {want}")
+
+    emit("tune", card=smi_line(), trials=len(trials), wall_s=wall_s,
+         trials_per_hour=analysis.trials_per_hour(),
+         median_epoch_s={"flash": median_epoch_s(trials, True),
+                         "other": median_epoch_s(trials, False)},
+         stop_iterations={t.trial_id: [t.config["attention_type"],
+                                       t.training_iteration] for t in trials},
+         launches=launches, best_config=best,
+         best_validation_mape=want, best_model_rel_err=mape_rel_err)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1307,6 +1447,7 @@ def main() -> int:
                 n_requests=32, atol=3e-2)
     phase_serve("serve_gqa", GQA_ROPE, 96, n_requests=16, atol=2e-4)
     launches, launches_f32 = phase_train()
+    launches_tune = phase_tune()
 
     sources = {
         "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
@@ -1323,6 +1464,8 @@ def main() -> int:
             "source": f"distributed_machine_learning_tpu_torch/csrc/{source}",
             "replaces": f"distributed_machine_learning_tpu/ops/{replaces}",
             "launches": launches[name],
+            # The tune phase's count: the README quickstart's sweep (f32).
+            "launches_tune": launches_tune[name],
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},

@@ -1,33 +1,137 @@
 """Public tune API of the port.
 
-Ported so far: the per-trial session and the built-in trainable, so one
-trial runs outside a sweep:
+The README quickstart of the JAX package runs here with only the package
+name changed:
 
     from distributed_machine_learning_tpu_torch import tune
 
-    trainable = tune.with_parameters(tune.train_regressor,
-                                     train_data=train, val_data=val)
-    with tune.session.standalone():
-        trainable(config)
+    analysis = tune.run(
+        tune.with_parameters(tune.train_regressor, train_data=..., val_data=...),
+        param_space={"learning_rate": tune.loguniform(1e-5, 1e-2), ...},
+        metric="validation_mape", mode="min", num_samples=50,
+        scheduler=tune.ASHAScheduler(...),
+        search_alg=tune.BayesOptSearch(...),
+    )
+    print(analysis.best_config)
 
-``tune.run`` with its searchers and schedulers is not ported yet
-(ROADMAP.md queue A).
+Trials run on every visible card unless ``tune.run(devices=...)`` says
+otherwise (``[torch.device("cpu")]`` on a machine without one).  One
+trial runs outside a sweep under ``tune.session.standalone()``.
+
+Ported so far: ``tune.run`` with the thread executor, the search space,
+``RandomSearch``/``GridSearch``/``BayesOptSearch`` and warm-start points,
+the FIFO and ASHA schedulers, the stoppers, the experiment store and
+analysis, the logger/JSONL/progress callbacks, pickle-free checkpoints,
+the session and ``train_regressor``.  The rest (TPE, HyperBand, the median
+rule, PBT/PB2, ``Repeater``, the process executor, resume, TensorBoard
+and profiler callbacks, remote storage, the vectorized and sharded
+runners) is in ROADMAP.md queue A.
 """
 
 from distributed_machine_learning_tpu_torch.tune import session
+from distributed_machine_learning_tpu_torch.tune.callbacks import (
+    Callback,
+    JsonlCallback,
+    LoggerCallback,
+    ProgressReporter,
+)
+from distributed_machine_learning_tpu_torch.tune.experiment import (
+    ExperimentAnalysis,
+    ExperimentStore,
+)
+from distributed_machine_learning_tpu_torch.tune.runner import run
+from distributed_machine_learning_tpu_torch.tune.schedulers import (
+    ASHAScheduler,
+    FIFOScheduler,
+    TrialScheduler,
+)
+from distributed_machine_learning_tpu_torch.tune.search import (
+    BayesOptSearch,
+    GridSearch,
+    RandomSearch,
+    Searcher,
+    WarmStartSearcher,
+)
+from distributed_machine_learning_tpu_torch.tune.search_space import (
+    Constraint,
+    SearchSpace,
+    choice,
+    constant,
+    loguniform,
+    lograndint,
+    qloguniform,
+    qrandint,
+    quniform,
+    randint,
+    randn,
+    sample_from,
+    uniform,
+)
 from distributed_machine_learning_tpu_torch.tune.session import (
     get_checkpoint,
+    get_devices,
+    get_trial_id,
+    heartbeat,
     report,
+    standalone,
     with_parameters,
+)
+from distributed_machine_learning_tpu_torch.tune.stoppers import (
+    MaximumIterationStopper,
+    Stopper,
+    TrialPlateauStopper,
 )
 from distributed_machine_learning_tpu_torch.tune.trainable import (
     train_regressor,
 )
+from distributed_machine_learning_tpu_torch.tune.trial import (
+    Resources,
+    Trial,
+    TrialStatus,
+)
 
 __all__ = [
     "session",
+    "run",
     "report",
+    "heartbeat",
     "get_checkpoint",
+    "get_devices",
+    "get_trial_id",
+    "standalone",
     "with_parameters",
     "train_regressor",
+    "choice",
+    "uniform",
+    "loguniform",
+    "quniform",
+    "qloguniform",
+    "randint",
+    "qrandint",
+    "lograndint",
+    "randn",
+    "sample_from",
+    "constant",
+    "Constraint",
+    "SearchSpace",
+    "ASHAScheduler",
+    "FIFOScheduler",
+    "TrialScheduler",
+    "RandomSearch",
+    "GridSearch",
+    "BayesOptSearch",
+    "WarmStartSearcher",
+    "Stopper",
+    "TrialPlateauStopper",
+    "MaximumIterationStopper",
+    "Searcher",
+    "ExperimentAnalysis",
+    "ExperimentStore",
+    "Callback",
+    "LoggerCallback",
+    "JsonlCallback",
+    "ProgressReporter",
+    "Resources",
+    "Trial",
+    "TrialStatus",
 ]

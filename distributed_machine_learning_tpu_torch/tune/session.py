@@ -5,8 +5,8 @@ file; it imports no JAX).  A trainable is any callable
 ``fn(config, **bound_params)`` that calls ``report(**metrics)`` per epoch.
 ``report`` returns the runner's decision, and a stop or pause raises in
 the trainable at the epoch boundary.  The devices a session carries are
-``torch.device``s.  ``tune.run``, which installs sessions for a sweep, is
-not ported yet (ROADMAP.md queue A); ``standalone()`` runs one trial.
+``torch.device``s.  ``tune.run``'s executor installs one per trial;
+``standalone()`` runs one trial outside a sweep.
 """
 
 from __future__ import annotations

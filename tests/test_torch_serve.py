@@ -338,6 +338,7 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.utils.registry",
     "distributed_machine_learning_tpu_torch.utils.seeding",
     "chip_smoke",
+    "chip_quickstart",
 ]
 
 
