@@ -56,6 +56,23 @@ nonzero; nothing is caught and passed over):
    the sampled configs and read back the same from the experiment
    directory, and ``best_model()`` must reproduce the best trial's last
    ``validation_mape`` on the card within 1e-5 of relative error.
+8. vectorized — the bench headline (``bench.py``: d_model 64, 4 heads, 2
+   layers, FF 128, dropout 0.1, batch 32, f32, ``glucose_like_data(100_000,
+   16)``, 50 trials x 20 epochs) uncut through the port's
+   ``tune.run_vectorized``, FIFO then ASHA (max_t 20, grace 5, factor 2):
+   every trial TERMINATED, FIFO 1000 row-epochs, ASHA fewer and at least
+   one compaction; wall seconds, trials/hour and the runner's
+   ``device_utilization``.  Row independence: a trial that ran all 20
+   epochs in the compacting ASHA population, the same trial in the FIFO
+   population and that config trained alone end within ``ROW_TOL`` (final
+   parameters and ``validation_mape``), with its dropout draws bit-equal in
+   all three; one row's training forward alone and in the population agree
+   (and with other masks do not).  One population step at K = 50 and K = 1:
+   host ms, device span and busy ms, launches (torch.profiler).  Then a
+   flash group (the same space with ``attention_type="flash"``, cut to 8
+   trials x 3 epochs): the kernels launched once per layer per population
+   step or eval block, the same at K = 8 and K = 1, and each folded kernel
+   call of a step held against its plain version (``KERNEL_TOL`` f32).
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -1429,6 +1446,365 @@ def phase_tune():
     return launches
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+# The bench headline (bench.py:52, :75-81, :451-483): FULL scale.
+HEADLINE = dict(num_trials=50, num_epochs=20, data_steps=100_000)
+HEADLINE_ASHA = dict(max_t=20, grace_period=5, reduction_factor=2)
+# The flash group's depth, cut from 50 x 20.
+FLASH_TRIALS, FLASH_EPOCHS = 8, 3
+# One trial's f32 trajectory alone, in the 50-row population and in an ASHA
+# population that compacted around it.  The card's batched products pick
+# other kernels at other batch counts, so the rows agree to rounding, not
+# bit for bit, and 440 adam steps scale that rounding up to steps of about
+# lr in the entries whose gradient is near 0 (a unit whose ReLU rarely
+# fires): on an H100 80GB HBM3 the worst parameter read 2.4e-3 of its
+# largest entry alone against the population (the layer-0 FF weight), and
+# the final validation_mape 8.0e-8 of itself (PERF.md, PR 11).  A wrong
+# mask or a row mixed up in compaction moves them by O(0.1-1): the same
+# row's forward with other masks reads 0.77.
+ROW_TOL = {"params": 1e-2, "validation_mape": 1e-5}
+# One row's training forward (dropout on) alone and in the population, on
+# the same weights, batch and masks: read 3.6e-7 of its largest entry.
+FORWARD_ROW_TOL = 1e-5
+
+
+def headline_data():
+    """``glucose_like_data(100_000, 16)``: 729 training and 312
+    validation windows of 96 x 16."""
+    from distributed_machine_learning_tpu_torch.data import glucose_like_data
+
+    return glucose_like_data(num_steps=HEADLINE["data_steps"],
+                             num_features=FEATURES)
+
+
+def headline_space(tune, num_epochs: int = HEADLINE["num_epochs"],
+                   **overrides) -> dict:
+    """``bench.py::_bench_space`` at FULL scale with compute_dtype
+    float32, spelled for the port."""
+    space = {
+        "model": "transformer",
+        "d_model": 64,
+        "num_heads": 4,
+        "num_layers": 2,
+        "dim_feedforward": 128,
+        "dropout": 0.1,
+        "learning_rate": tune.loguniform(1e-4, 1e-2),
+        "weight_decay": tune.loguniform(1e-6, 1e-3),
+        "seed": tune.randint(0, 1_000_000),
+        "num_epochs": num_epochs,
+        "batch_size": 32,
+        "max_seq_length": 128,
+        "loss_function": "mse",
+        "compute_dtype": "float32",
+    }
+    space.update(overrides)
+    return space
+
+
+def headline_sweep(tune, train, val, root: str, tag: str, *, space=None,
+                   scheduler=None, num_samples: int = HEADLINE["num_trials"],
+                   epochs_per_dispatch="auto"):
+    """bench.py's ``sweep`` (:529-550) through the port's
+    ``tune.run_vectorized``: ``num_samples`` trials in one chunk, seed 42.
+    Returns the analysis, the wall seconds, the experiment state and the
+    three flash kernels' launches; raises unless every trial ends
+    TERMINATED."""
+    counters = _reset_counters()
+    t0 = time.monotonic()
+    analysis = tune.run_vectorized(
+        space or headline_space(tune), train_data=train, val_data=val,
+        metric="validation_mape", mode="min", num_samples=num_samples,
+        max_batch_trials=num_samples, scheduler=scheduler,
+        storage_path=root, name=f"bench_{tag}", seed=42, verbose=0,
+        epochs_per_dispatch=epochs_per_dispatch)
+    wall_s = time.monotonic() - t0
+    launches = {c.name: c.count for c in counters}
+    with open(f"{analysis.root}/experiment_state.json") as f:
+        state = json.load(f)
+    bad = {t.trial_id: t.status.value for t in analysis.trials
+           if t.status.value != "TERMINATED"}
+    if len(analysis.trials) != num_samples or bad:
+        raise AssertionError(f"vectorized {tag}: {len(analysis.trials)} "
+                             f"trials, not all TERMINATED: {bad}")
+    return analysis, wall_s, state, launches
+
+
+def population_step(tune, train, val, config: dict, rows: int):
+    """One training step (one batch of every row: forward, backward,
+    population adam) of ``rows`` trials of ``config``'s group, as the
+    sweep runs it; returns ``(step_fn, program, state)``."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops.losses import get_loss
+    from distributed_machine_learning_tpu_torch.tune import vectorized
+    from distributed_machine_learning_tpu_torch.tune._regression_program \
+        import make_population_epoch_fn
+
+    program = vectorized._GroupProgram(config, train, val,
+                                       torch.device("cuda", 0))
+    seeds = [int(config["seed"]) + i for i in range(rows)]
+    state = program.init_population(seeds, [config["learning_rate"]] * rows,
+                                    [config["weight_decay"]] * rows)
+    d = program.data
+    step = make_population_epoch_fn(
+        program.model, program.tx, get_loss(program.loss_name), d.n_train, 1,
+        d.batch_size)
+    perms = program.permutations(state, 0)
+
+    def step_fn():
+        return step(state.params, state.opt_state, d.x_train, d.y_train,
+                    perms, state.stream_seeds, 0)
+
+    return step_fn, program, state
+
+
+def profile_population_step(step_fn) -> dict:
+    """One population step: its host ms (to the read back of its losses),
+    its device span (CUDA events around unprofiled steps) and its device
+    busy ms and launches (torch.profiler, four profiles behind a discarded
+    warm-up step each: an event at a window's edge can go missing, so the
+    launches are the largest count, which at least two must show)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    float(step_fn().sum())  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        float(step_fn().sum())
+    host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    span_ms = cuda_ms(lambda: step_fn(), iters=5, warmup=0)
+    runs = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            float(step_fn().sum())
+            prof.step()
+            float(step_fn().sum())
+            prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        runs.append((sum(e.count for e in events),
+                     sum(e.self_device_time_total for e in events) / 1e3))
+    launches = max(n for n, _ in runs)
+    complete = [ms for n, ms in runs if n == launches]
+    if len(complete) < 2:
+        raise AssertionError(f"vectorized: fewer than two complete profiles "
+                             f"of the step: {runs}")
+    busy_ms = complete[0]
+    return {"host_ms": host_ms, "device_span_ms": span_ms,
+            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / span_ms,
+            "launches": launches,
+            "launches_by_profile": [n for n, _ in runs]}
+
+
+def _params_rel_err(a: dict, b: dict):
+    """The largest :func:`_rel_err` of one parameter and its name, the
+    attention key biases left out (ZERO_GRAD_PARAMS: their gradient is
+    rounding alone, which adam scales up to steps of about lr)."""
+    per = {k: _rel_err(a[k], b[k]) for k in b
+           if not k.endswith(ZERO_GRAD_PARAMS)}
+    name = max(per, key=per.get)
+    return per[name], name
+
+
+def _row_independence(tune, train, val, root, fifo, asha) -> dict:
+    """A trial that ran all epochs in the ASHA population (which compacted
+    around it), against the same trial in the FIFO population and trained
+    alone; and the dropout masks of that row, bit for bit."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops import rng
+    from distributed_machine_learning_tpu_torch.tune.checkpoint import (
+        load_checkpoint,
+    )
+
+    epochs = HEADLINE["num_epochs"]
+    survivor = next(t for t in asha.trials if t.training_iteration == epochs)
+    row = next(t for t in fifo.trials if t.trial_id == survivor.trial_id)
+    if row.config != survivor.config:
+        raise AssertionError("vectorized: FIFO and ASHA sampled other "
+                             "configs for one trial id")
+    alone, _, _, _ = headline_sweep(tune, train, val, root, "alone",
+                                    space=dict(row.config), num_samples=1)
+    want = load_checkpoint(row.latest_checkpoint)["params"]
+    want_mape = row.last_result["validation_mape"]
+    errs = {}
+    for name, trial in (("alone", alone.trials[0]), ("asha", survivor)):
+        got = load_checkpoint(trial.latest_checkpoint)["params"]
+        worst, param = _params_rel_err(got, want)
+        errs[name] = {
+            "params": worst, "worst_param": param,
+            "validation_mape": abs(trial.last_result["validation_mape"]
+                                   - want_mape) / abs(want_mape)}
+    # The masks: the row's draws at a dropout site's shape, in the whole
+    # population, alone and in a compacted half, on the card.
+    seeds = torch.tensor([rng.stream_seed(t.config["seed"])
+                          for t in fifo.trials], device="cuda")
+    i = fifo.trials.index(row)
+    shape = (32, 96, 64)
+    masks_equal = True
+    for step in (0, 439):
+        whole = rng.uniform(seeds, step, 3, shape)
+        masks_equal &= bool(torch.equal(
+            whole[i], rng.uniform(seeds[i:i + 1], step, 3, shape)[0]))
+        half = sorted({i, *range(0, len(seeds), 2)})
+        masks_equal &= bool(torch.equal(
+            whole[i], rng.uniform(seeds[half], step, 3, shape)[half.index(i)]))
+    bad = {k: v for k, v in errs.items()
+           if any(v[m] > ROW_TOL[m] for m in ROW_TOL)}
+    if bad or not masks_equal:
+        raise AssertionError(f"vectorized: {row.trial_id} is not the same "
+                             f"alone / after compaction: {errs} (tol "
+                             f"{ROW_TOL}), masks equal {masks_equal}")
+    return {"trial": row.trial_id, "rel_err": errs, "tol": ROW_TOL,
+            "masks_bit_equal": masks_equal}
+
+
+def _forward_rows_agree(tune, train, val, config: dict):
+    """The training forward (dropout on) of row 17 in a population of 50
+    and alone, on the same weights and batch: equal masks give outputs
+    within f32 rounding.  The same row at another step (other masks) is
+    the planted fault that must read far off.  Returns both readings."""
+    import torch
+    from torch.func import functional_call, vmap
+
+    from distributed_machine_learning_tpu_torch.ops.rng import RowStream
+
+    _, program, state = population_step(tune, train, val, config, 50)
+    program.model.train()
+    xb = program.data.x_train[program.permutations(state, 0)[:, :32]]
+
+    def forward(params, x, seed, step):
+        return functional_call(program.model, params, (x,),
+                               {"rng": RowStream(seed, step)})
+
+    run = vmap(forward, in_dims=(0, 0, 0, None), randomness="error")
+    i = 17
+    alone = ({k: v[i:i + 1] for k, v in state.params.items()}, xb[i:i + 1],
+             state.stream_seeds[i:i + 1])
+    with torch.no_grad():
+        whole = run(state.params, xb, state.stream_seeds, 7)[i]
+        same, other = run(*alone, 7)[0], run(*alone, 8)[0]
+    return _rel_err(same, whole), _rel_err(other, whole)
+
+
+def _flash_group(tune, train, val, root) -> dict:
+    """The headline space with ``attention_type="flash"`` (cut to 8
+    trials x 3 epochs): launches per population step at K = 8 and K = 1,
+    the sweep's launches, and every kernel call of one population step
+    held against its plain version on the model's own activations."""
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    space = headline_space(tune, num_epochs=FLASH_EPOCHS,
+                           attention_type="flash")
+    analysis, wall_s, state, launches = headline_sweep(
+        tune, train, val, root, "flash", space=space,
+        num_samples=FLASH_TRIALS)
+    layers_n = space["num_layers"]
+    steps = analysis.trials[0].results[-1]["steps"]
+    eval_blocks = -(-len(val) // space["batch_size"])
+    want = {"flash_fwd": layers_n * (steps + FLASH_EPOCHS * eval_blocks),
+            "flash_bwd_dkdv": layers_n * steps,
+            "flash_bwd_dq": layers_n * steps}
+    if launches != want:
+        raise AssertionError(f"vectorized flash: the sweep launched "
+                             f"{launches}, not {want} (once per layer per "
+                             f"population step or eval block)")
+    config = dict(analysis.trials[0].config)
+    per_step = {}
+    for rows in (FLASH_TRIALS, 1):
+        step_fn, _, _ = population_step(tune, train, val, config, rows)
+        float(step_fn().sum())
+        counters = _reset_counters()
+        float(step_fn().sum())
+        per_step[rows] = {c.name: c.count for c in counters}
+    if any(n != layers_n for v in per_step.values() for n in v.values()):
+        raise AssertionError(f"vectorized flash: launches per population "
+                             f"step {per_step}, not {layers_n} each")
+    record = {}
+    step_fn, _, _ = population_step(tune, train, val, config, FLASH_TRIALS)
+    saved = fa.flash_forward, fa.flash_backward
+    fa.flash_forward, fa.flash_backward = _checking(record)
+    try:
+        float(step_fn().sum())
+    finally:
+        fa.flash_forward, fa.flash_backward = saved
+    tol = KERNEL_TOL["float32"]
+    if (record.get("calls") != layers_n
+            or not max(record[n] for n in ("out", "dq", "dk", "dv")) <= tol):
+        raise AssertionError(f"vectorized flash: a folded kernel call off "
+                             f"its plain version: {record} (tol {tol})")
+    return {"trials": FLASH_TRIALS, "epochs": FLASH_EPOCHS,
+            "cut": "8 trials x 3 epochs, from the headline's 50 x 20",
+            "wall_s": wall_s, "launches": launches,
+            "launches_per_step": {f"K={k}": v for k, v in per_step.items()},
+            "folded_rel_err": record, "tol": tol}
+
+
+def phase_vectorized():
+    from distributed_machine_learning_tpu_torch import tune
+
+    t_start = time.monotonic()
+    train, val = headline_data()
+    with tempfile.TemporaryDirectory() as root:
+        fifo, fifo_s, fifo_state, _ = headline_sweep(
+            tune, train, val, root, "fifo",
+            epochs_per_dispatch=HEADLINE["num_epochs"])
+        asha, asha_s, asha_state, _ = headline_sweep(
+            tune, train, val, root, "asha",
+            scheduler=tune.ASHAScheduler(**HEADLINE_ASHA))
+        full = HEADLINE["num_trials"] * HEADLINE["num_epochs"]
+        if fifo_state["row_epochs_computed"] != full:
+            raise AssertionError(f"vectorized: FIFO ran "
+                                 f"{fifo_state['row_epochs_computed']} "
+                                 f"row-epochs, not {full}")
+        if not (asha_state["row_epochs_computed"] < full
+                and asha_state["population_compactions"] >= 1):
+            raise AssertionError(f"vectorized: ASHA ran "
+                                 f"{asha_state['row_epochs_computed']} "
+                                 f"row-epochs with "
+                                 f"{asha_state['population_compactions']} "
+                                 f"compactions")
+        independence = _row_independence(tune, train, val, root, fifo, asha)
+        config = dict(fifo.trials[0].config)
+        forward_err, other_masks_err = _forward_rows_agree(
+            tune, train, val, config)
+        if not (forward_err <= FORWARD_ROW_TOL < other_masks_err):
+            raise AssertionError(f"vectorized: row 17's training forward "
+                                 f"alone is {forward_err} off its forward in "
+                                 f"the population, with other masks "
+                                 f"{other_masks_err} (tol {FORWARD_ROW_TOL})")
+        steps = {}
+        for rows in (HEADLINE["num_trials"], 1):
+            step_fn, _, _ = population_step(tune, train, val, config, rows)
+            steps[f"K={rows}"] = profile_population_step(step_fn)
+        flash = _flash_group(tune, train, val, root)
+    emit("vectorized", card=smi_line(),
+         data={"train": list(train.x.shape), "val": list(val.x.shape)},
+         fifo={"wall_s": fifo_s, "trials_per_hour":
+               fifo.num_terminated() * 3600.0 / fifo_s,
+               "row_epochs": fifo_state["row_epochs_computed"],
+               "device_utilization": fifo_state["device_utilization"]},
+         asha={"wall_s": asha_s, "trials_per_hour":
+               asha.num_terminated() * 3600.0 / asha_s,
+               "row_epochs": asha_state["row_epochs_computed"],
+               "compactions": asha_state["population_compactions"],
+               "device_utilization": asha_state["device_utilization"],
+               "stop_iterations": sorted(t.training_iteration
+                                         for t in asha.trials)},
+         best_validation_mape=fifo.best_result["validation_mape"],
+         row_independence=independence, forward_row_rel_err=forward_err,
+         forward_other_masks_rel_err=other_masks_err,
+         population_step=steps, flash=flash,
+         total_s=time.monotonic() - t_start)
+    return flash
+
+
 def main() -> int:
     import torch
 
@@ -1448,6 +1824,7 @@ def main() -> int:
     phase_serve("serve_gqa", GQA_ROPE, 96, n_requests=16, atol=2e-4)
     launches, launches_f32 = phase_train()
     launches_tune = phase_tune()
+    flash_population = phase_vectorized()
 
     sources = {
         "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
@@ -1466,6 +1843,13 @@ def main() -> int:
             "launches": launches[name],
             # The tune phase's count: the README quickstart's sweep (f32).
             "launches_tune": launches_tune[name],
+            # The vectorized phase's flash group (f32, D = 16, S = 96, the
+            # population folded into the batch): its sweep, and one
+            # population step of 8 rows and of 1.
+            "launches_population": {
+                "flash_sweep": flash_population["launches"][name],
+                **{f"per_step_{k}": v[name] for k, v in
+                   flash_population["launches_per_step"].items()}},
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},

@@ -15,12 +15,18 @@ a flax path ``layer_0/attention/query/kernel`` is the torch key
 
 With ``shared_weights`` the one scanned block lives under
 ``shared_layer/layer``, which is also the torch path.
+
+A population (``tune/vectorized.py``) holds K models' weights stacked on a
+leading axis in both packages: :func:`population_from_flax` carries a JAX
+population's params (numpy leaves ``[K, ...]``) into the port's stacked
+state, :func:`stack_rows`/:func:`unstack_rows` go between K state dicts
+and one stacked dict.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -96,3 +102,32 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 def input_features_of(params: Mapping[str, Any]) -> int:
     """Width of one input row, read off the input projection kernel."""
     return int(np.shape(params["input_projection"]["kernel"])[0])
+
+
+def stack_rows(states: Sequence[Mapping[str, torch.Tensor]]
+               ) -> "OrderedDict[str, torch.Tensor]":
+    """K state dicts of one model -> one dict of ``[K, ...]`` tensors."""
+    return OrderedDict((k, torch.stack([s[k] for s in states]))
+                       for k in states[0])
+
+
+def unstack_rows(stacked: Mapping[str, torch.Tensor]
+                 ) -> List["OrderedDict[str, torch.Tensor]"]:
+    """The inverse of :func:`stack_rows`."""
+    rows = next(iter(stacked.values())).shape[0]
+    return [OrderedDict((k, t[i]) for k, t in stacked.items())
+            for i in range(rows)]
+
+
+def _row_of(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _row_of(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for k, v in tree.items()}
+
+
+def population_from_flax(params: Mapping[str, Any]
+                         ) -> "OrderedDict[str, torch.Tensor]":
+    """A JAX population's ``params`` (flax layout, every leaf ``[K, ...]``)
+    -> the port's stacked state: :func:`from_flax_params` per row."""
+    rows = next(np.shape(leaf)[0] for _, leaf in _flatten(params))
+    return stack_rows([from_flax_params(_row_of(params, i))
+                       for i in range(rows)])

@@ -9,9 +9,10 @@ layer norm computes its statistics in f32 and returns ``dtype``.
 
 Randomness is explicit: parameters are drawn by ``reset_parameters`` from
 a ``torch.Generator`` when one is given (``models.init_parameters``), and
-dropout and stochastic depth draw their training masks from the generator
-passed to ``forward(x, rng)``; nothing reads torch's global RNG in
-training.  Evaluation draws nothing.
+dropout and stochastic depth draw their training masks from the ``rng``
+passed to ``forward(x, rng)``: a ``torch.Generator`` (one trial), or a
+per-row stream (``ops/rng.py``: a population under ``torch.func.vmap``);
+nothing reads torch's global RNG in training.  Evaluation draws nothing.
 
 Sequence parallelism (``seq_axis``, ring/Ulysses) and the mixture-of-
 experts feed-forward are not ported yet (ROADMAP.md queue A); asking for
@@ -21,7 +22,7 @@ not carried over: "flash" runs only where the config names it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -37,6 +38,10 @@ from distributed_machine_learning_tpu_torch.ops.attention import (
 from distributed_machine_learning_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
+from distributed_machine_learning_tpu_torch.ops.rng import RowStream
+
+# Where training masks come from: one trial's generator, or a row stream.
+Rng = Union[torch.Generator, RowStream]
 
 ATTENTION_TYPES = (
     "scaled_dot_product",
@@ -140,34 +145,39 @@ class Conv1d(nn.Module):
         return y.transpose(1, 2)
 
 
-def _rng_for_training(rng: Optional[torch.Generator]) -> torch.Generator:
+def _draw(rng, shape, device) -> torch.Tensor:
+    """Uniform [0, 1) draws for a training mask, from ``rng``: a
+    ``torch.Generator``, or a per-row stream with a ``uniform(shape,
+    device)`` method (``ops.rng.RowStream``, which also works under
+    ``torch.func.vmap``)."""
     if rng is None:
         raise ValueError(
-            "a dropout mask in training needs an explicit torch.Generator: "
-            "call the model as model(x, rng=generator)"
+            "a dropout mask in training needs an explicit torch.Generator "
+            "or row stream: call the model as model(x, rng=...)"
         )
-    return rng
+    if isinstance(rng, torch.Generator):
+        return torch.rand(shape, generator=rng, device=device)
+    return rng.uniform(shape, device)
 
 
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: in training each element is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask is
-    drawn from the generator handed to ``forward``.  The identity in
-    evaluation or at rate 0."""
+    drawn from the generator or row stream handed to ``forward``.  The
+    identity in evaluation or at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         if self.rate <= 0.0 or not self.training:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=_rng_for_training(rng),
-                          device=x.device) < keep
+        mask = _draw(rng, x.shape, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -196,7 +206,7 @@ class PositionalEncoding(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         x = x + self.table[None, : x.shape[1], :].to(x.dtype)
         return self.dropout(x, rng)
 
@@ -226,20 +236,20 @@ def apply_rope(x: torch.Tensor, base: float = 10000.0,
 
 class StochasticDepth(nn.Module):
     """Drops a whole residual branch per sample with prob ``rate`` in
-    training; the mask comes from the generator handed to ``forward``."""
+    training; the mask comes from the generator or row stream handed to
+    ``forward``."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         if self.rate <= 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         mask_shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(mask_shape, generator=_rng_for_training(rng),
-                          device=x.device) < keep
+        mask = _draw(rng, mask_shape, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -310,7 +320,7 @@ class MultiHeadAttention(nn.Module):
         return k, v
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         S = x.shape[1]
         q, k, v = self.query(x), self.key(x), self.value(x)
         if self.rope:
@@ -424,7 +434,7 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model, dtype)
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         x = self.norm1(x + self.attn_depth(self.attention(x, rng), rng))
         ff = self.ff_depth(self.ff_dropout(self.ff(x), rng), rng)
         return self.norm2(x + ff)

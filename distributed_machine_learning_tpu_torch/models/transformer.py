@@ -26,6 +26,7 @@ from distributed_machine_learning_tpu_torch.models.layers import (
     Dropout,
     EncoderLayer,
     PositionalEncoding,
+    Rng,
 )
 
 
@@ -125,7 +126,7 @@ class TransformerRegressor(nn.Module):
         )
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         """x: [batch, seq, input_features] -> [batch, out_features].
 
         ``rng`` draws the dropout masks in training mode."""
@@ -168,7 +169,7 @@ class SimpleTransformerRegressor(nn.Module):
         self.head = Dense(d_model, 1, dtype)
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[Rng] = None) -> torch.Tensor:
         x = self.position(self.input_projection(x), rng)
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, rng)

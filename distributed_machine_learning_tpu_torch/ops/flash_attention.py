@@ -510,27 +510,90 @@ def flash_backward(
     return _unpad(dq, D), _unpad(dk, D), _unpad(dv, D)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal, block_q, block_k):
-        if any(ctx.needs_input_grad[:3]):
-            # Refuse a tile the backward is not compiled for now, not after
-            # the forward has run.
-            _default_blocks(q.shape[1], q.shape[-1], block_q, block_k,
-                            backward=True, dtype=q.dtype)
-        out, lse = flash_forward(q, k, v, scale, causal, block_q, block_k,
-                                 with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (scale, causal, block_q, block_k)
-        return out
+def _fold(info, in_dims, tensors):
+    """The vmapped arguments of a flash call with the population axis
+    folded into the batch: each batched tensor's vmapped dim moved to 0,
+    each unbatched one expanded to ``info.batch_size`` rows, then
+    ``[K, B, ...]`` -> ``[K*B, ...]``."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = (t.expand(info.batch_size, *t.shape) if d is None
+             else t.movedim(d, 0))
+        out.append(t.reshape(-1, *t.shape[2:]))
+    return out
+
+
+class _FlashForward(torch.autograd.Function):
+    """``(out, lse)`` of :func:`flash_forward`; differentiable in q, k, v
+    through :class:`_FlashBackward`.  The ``setup_context`` form and the
+    ``vmap`` rule make it work under ``torch.func`` (``vmap``, ``grad``,
+    ``vmap(grad(...))``), and a ``vmap`` of K rows runs as ONE kernel
+    launch on the folded batch of K*B, not K launches."""
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def forward(q, k, v, scale, causal, block_q, block_k):
+        return flash_forward(q, k, v, scale, causal, block_q, block_k,
+                             with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, causal, block_q, block_k = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, block_q, block_k)
+        ctx.mark_non_differentiable(lse)
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_lse):
+        if grad_out is None:
+            return (None,) * 7
         q, k, v, out, lse = ctx.saved_tensors
-        scale, causal, block_q, block_k = ctx.args
-        dq, dk, dv = flash_backward(q, k, v, out, lse, grad_out, scale,
-                                    causal, block_q, block_k)
+        dq, dk, dv = _FlashBackward.apply(q, k, v, out, lse, grad_out,
+                                          *ctx.args)
         return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale, causal, block_q, block_k):
+        K = info.batch_size
+        qf, kf, vf = _fold(info, in_dims[:3], (q, k, v))
+        out, lse = _FlashForward.apply(qf, kf, vf, scale, causal, block_q,
+                                       block_k)
+        # lse rows are b*H + h; folded, (k*B + b)*H + h = k*(B*H) + b*H + h.
+        return ((out.reshape(K, -1, *out.shape[1:]),
+                 lse.reshape(K, -1, *lse.shape[1:])), (0, 0))
+
+
+class _FlashBackward(torch.autograd.Function):
+    """``(dq, dk, dv)`` of :func:`flash_backward`, as a Function of its
+    own so that the backward too has a ``vmap`` rule: under
+    ``vmap(grad(...))`` autograd hands the backward batched tensors, which
+    the kernels' ctypes launch cannot take, and the rule folds them as
+    the forward's does."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, do, scale, causal, block_q, block_k):
+        return flash_backward(q, k, v, out, lse, do, scale, causal, block_q,
+                              block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "flash attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, do, scale, causal, block_q,
+             block_k):
+        K = info.batch_size
+        qf, kf, vf, of, lsef, dof = _fold(info, in_dims[:6],
+                                          (q, k, v, out, lse, do))
+        grads = _FlashBackward.apply(qf, kf, vf, of, lsef, dof, scale,
+                                     causal, block_q, block_k)
+        return tuple(g.reshape(K, -1, *g.shape[1:]) for g in grads), (0, 0, 0)
 
 
 def flash_attention(
@@ -542,5 +605,19 @@ def flash_attention(
 
     k, v: [B, S, Hkv, D] with ``H % Hkv == 0``.  ``scale`` defaults to
     1/sqrt(D).  Differentiable: the backward runs the dK/dV and dQ kernels
-    (:func:`flash_backward`)."""
-    return _FlashAttention.apply(q, k, v, scale, causal, block_q, block_k)
+    (:func:`flash_backward`).  Works under ``torch.func`` transforms; a
+    ``vmap`` over K rows folds them into the batch of one launch.
+
+    Why ``autograd.Function`` with ``setup_context`` and ``vmap`` rules
+    rather than ``torch.library.custom_op``: the forward and backward stay
+    plain Python around the ctypes launch (no operator schema to register
+    once per process, no fake-tensor kernel to keep in step), and a plain
+    call runs exactly the launches it ran before."""
+    if (block_q is not None or block_k is not None) and \
+            torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+        # Refuse a tile the backward is not compiled for now, not after
+        # the forward has run.
+        _default_blocks(q.shape[1], q.shape[-1], block_q, block_k,
+                        backward=True, dtype=q.dtype)
+    return _FlashForward.apply(q, k, v, scale, causal, block_q, block_k)[0]

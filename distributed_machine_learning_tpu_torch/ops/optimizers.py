@@ -16,7 +16,9 @@ before the schedule and lr, rmsprop's after them.  The schedule is read
 at the update count, which starts at 0 on the first update.
 
 Parameters, gradients and moments are dicts of tensors keyed by parameter
-name.  The moments are updated in place (they are the optimizer's own
+name.  :class:`PopulationOptimizer` is the population form the vectorized
+runner steps: K trials' leaves stacked on a leading axis, one lr and wd
+per row.  The moments are updated in place (they are the optimizer's own
 buffers), which keeps one copy of each in device memory.
 """
 
@@ -104,18 +106,28 @@ class InjectedOptimizer:
         with torch.no_grad():
             return self._update(grads, state, params)
 
+    def _row(self, h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """``h`` (a hyperparameter, or one value per row) as it multiplies
+        leaf ``t``; one trial's are 0-d and broadcast as they are."""
+        return h
+
+    def _norm(self, u: Tensors) -> torch.Tensor:
+        return global_norm(u)
+
     def _update(self, grads, state, params) -> Tensors:
         lr = state["hyperparams"]["learning_rate"]
         wd = state["hyperparams"]["weight_decay"]
         count = int(state["count"])
+        row = self._row
         u = dict(grads)
         if self.gradient_clipping > 0:
-            g_norm = global_norm(u)
+            g_norm = self._norm(u)
             keep = g_norm < self.gradient_clipping
-            u = {k: torch.where(keep, t, (t / g_norm) * self.gradient_clipping)
+            u = {k: torch.where(row(keep, t), t,
+                                (t / row(g_norm, t)) * self.gradient_clipping)
                  for k, t in u.items()}
         if self.name != "adamw":
-            u = {k: t + wd * params[k] for k, t in u.items()}
+            u = {k: t + row(wd, t) * params[k] for k, t in u.items()}
         if self.name in ("adam", "adamw"):
             bc1 = _bias_correction(ADAM_B1, count + 1)
             bc2 = _bias_correction(ADAM_B2, count + 1)
@@ -125,7 +137,7 @@ class InjectedOptimizer:
                 nu.mul_(ADAM_B2).add_((1 - ADAM_B2) * (t * t))
                 u[k] = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
             if self.name == "adamw":
-                u = {k: t + wd * params[k] for k, t in u.items()}
+                u = {k: t + row(wd, t) * params[k] for k, t in u.items()}
         elif self.name == "rmsprop":
             for k, t in u.items():
                 nu = state["nu"][k]
@@ -135,7 +147,7 @@ class InjectedOptimizer:
             u = self._trace(u, state)
         step = self.shape_schedule(count)
         scale = -1.0 * lr
-        u = {k: (step * t) * scale for k, t in u.items()}
+        u = {k: (step * t) * row(scale, t) for k, t in u.items()}
         if self.momentum and self.name == "rmsprop":
             u = self._trace(u, state)
         state["count"] = count + 1
@@ -148,6 +160,30 @@ class InjectedOptimizer:
         return dict(state["trace"])
 
 
+class PopulationOptimizer(InjectedOptimizer):
+    """The same chain over a population of K trials stepping in lockstep:
+    every leaf (parameter, gradient, moment) is stacked ``[K, ...]``, the
+    hyperparameter slots are ``[K]`` (one learning rate and weight decay
+    per row, broadcast over that row's leaves), the clipping norm is taken
+    per row, and ``count`` is shared; set the rows' lr/wd with
+    :func:`set_injected_hyperparams` after ``init``.  Row k updates as
+    :class:`InjectedOptimizer` fed row k's values does."""
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        state = super().init(params)
+        rows = next(iter(params.values())).shape[0]
+        for name, h in state["hyperparams"].items():
+            state["hyperparams"][name] = h.new_zeros(rows)
+        return state
+
+    def _row(self, h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return h.reshape(-1, *([1] * (t.dim() - 1)))
+
+    def _norm(self, u: Tensors) -> torch.Tensor:
+        return torch.sqrt(sum(torch.sum((t * t).reshape(t.shape[0], -1), dim=1)
+                              for t in u.values()))
+
+
 def make_injected_optimizer(name: str, shape_schedule,
                             momentum: float = 0.0,
                             gradient_clipping: float = 0.0) -> InjectedOptimizer:
@@ -156,13 +192,29 @@ def make_injected_optimizer(name: str, shape_schedule,
     return InjectedOptimizer(name, shape_schedule, momentum, gradient_clipping)
 
 
-def set_injected_hyperparams(opt_state: Dict[str, Any], lr: float,
-                             wd: float) -> Dict[str, Any]:
-    """Write lr/wd into the state's hyperparameter slots (in place)."""
+def set_injected_hyperparams(opt_state: Dict[str, Any], lr, wd
+                             ) -> Dict[str, Any]:
+    """Write lr/wd into the state's hyperparameter slots (in place): two
+    numbers, or for a population one per row."""
     hp = opt_state["hyperparams"]
-    hp["learning_rate"].fill_(float(lr))
-    hp["weight_decay"].fill_(float(wd))
+    for name, value in (("learning_rate", lr), ("weight_decay", wd)):
+        hp[name].copy_(torch.as_tensor(value, dtype=torch.float32))
     return opt_state
+
+
+def take_rows(opt_state: Dict[str, Any], index: torch.Tensor
+              ) -> Dict[str, Any]:
+    """A population state cut to the rows ``index`` (every stacked
+    tensor indexed on its leading axis; ``count`` kept)."""
+
+    def take(x):
+        if isinstance(x, torch.Tensor):
+            return x[index]
+        if isinstance(x, Mapping):
+            return {k: take(v) for k, v in x.items()}
+        return x
+
+    return take(opt_state)
 
 
 def apply_updates(params: Mapping[str, torch.Tensor],

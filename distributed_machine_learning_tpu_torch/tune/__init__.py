@@ -22,9 +22,11 @@ Ported so far: ``tune.run`` with the thread executor, the search space,
 ``RandomSearch``/``GridSearch``/``BayesOptSearch`` and warm-start points,
 the FIFO and ASHA schedulers, the stoppers, the experiment store and
 analysis, the logger/JSONL/progress callbacks, pickle-free checkpoints,
-the session and ``train_regressor``.  The rest (TPE, HyperBand, the median
-rule, PBT/PB2, ``Repeater``, the process executor, resume, TensorBoard
-and profiler callbacks, remote storage, the vectorized and sharded
+the session and ``train_regressor``; and ``tune.run_vectorized``, which
+trains a population of trials as one batched program (the bench
+headline's runner; ``device="cpu"`` without a card).  The rest (TPE,
+HyperBand, the median rule, PBT/PB2, ``Repeater``, the process executor,
+resume, TensorBoard and profiler callbacks, remote storage, the sharded
 runners) is in ROADMAP.md queue A.
 """
 
@@ -89,10 +91,14 @@ from distributed_machine_learning_tpu_torch.tune.trial import (
     Trial,
     TrialStatus,
 )
+from distributed_machine_learning_tpu_torch.tune.vectorized import (
+    run_vectorized,
+)
 
 __all__ = [
     "session",
     "run",
+    "run_vectorized",
     "report",
     "heartbeat",
     "get_checkpoint",

@@ -7,9 +7,10 @@ retries failed trials from their newest checkpoint, prunes checkpoints
 and enforces the time budget.  (The reference delegated all of this to
 Ray Tune's trial runner; SURVEY.md §1 L4.)
 
-Not ported yet (ROADMAP.md A1): the write-ahead journal and experiment
-resume (``restore_experiment``, ``restore_from_journal``), the per-trial
-time limit, and REQUEUE decisions (PBT's exploit), which raise.
+Not ported yet: the write-ahead journal and experiment resume
+(``restore_experiment``, ``restore_from_journal``; ROADMAP.md A3c), the
+per-trial time limit (A3b), and REQUEUE decisions (PBT's exploit; A1
+slice c), which raise.
 """
 
 from __future__ import annotations
@@ -158,7 +159,7 @@ class TrialLifecycle:
             raise NotImplementedError(
                 f"{type(self.scheduler).__name__} asked to requeue "
                 f"{trial.trial_id}: REQUEUE decisions (PBT) are not ported "
-                f"yet; see ROADMAP.md A1"
+                f"yet; see ROADMAP.md A1 slice c"
             )
         self.searcher.on_trial_result(
             trial.trial_id, reported_config, metrics, self.metric, self.mode

@@ -15,6 +15,16 @@ Two things become explicit arguments:
 
 ``make_forward``/``detect_call_convention`` are not needed: a torch model
 switches between training and evaluation with ``train()``/``eval()``.
+
+The population forms (:func:`make_population_epoch_fn`,
+:func:`make_population_eval_fn`) are what the JAX package gets from
+``jax.vmap`` over the same bodies (``tune/vectorized.py``): K trials'
+parameters stacked on a leading axis (``torch.func.stack_module_state``),
+the loss through ``torch.func.functional_call``, and
+``vmap(grad(loss))`` over (the row's parameters, the row's batch, the
+row's dropout seed), so a step of K trials is one batched program.  Each
+row draws its dropout masks from its own counter-based stream
+(``ops/rng.py``), so nothing in a row depends on the others.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ import torch
 from distributed_machine_learning_tpu_torch.ops.losses import huber
 from distributed_machine_learning_tpu_torch.ops.optimizers import (
     InjectedOptimizer,
+    PopulationOptimizer,
     apply_updates,
 )
+from distributed_machine_learning_tpu_torch.ops.rng import RowStream
 
 
 def per_example_losses(preds: torch.Tensor, targets: torch.Tensor):
@@ -124,6 +136,87 @@ def make_eval_fn(
             total = torch.stack(sums).sum(dim=0)
             se, ae, ape, hub, count = (*total.tolist(), mask.sum().item())
         return eval_metrics_from_sums(loss_name, se, ae, ape, hub, count)
+
+    return evaluate
+
+
+def make_population_epoch_fn(
+    model: torch.nn.Module,
+    tx: PopulationOptimizer,
+    loss_fn: Callable,
+    n_train: int,
+    num_batches: int,
+    batch_size: int,
+) -> Callable:
+    """One training epoch of a population, its stacked parameters updated
+    in place.
+
+    ``epoch(params, opt_state, x_all, y_all, perms, stream_seeds, step0)
+    -> mean_losses`` (``[K]`` on the device, not read back).  ``params``
+    is ``{name: [K, ...]}`` over ``model``'s parameter names (``model``
+    lends its structure and buffers to ``functional_call``); ``perms`` is
+    ``[K, >= num_batches * batch_size]``, each row that row's shuffle of
+    the ``n_train`` rows; ``stream_seeds`` ``[K]`` int64 are the rows'
+    dropout seeds; step i of the epoch draws its masks at step index
+    ``step0 + i``.  Row k's batch is gathered from the shared staged data
+    as ``[K, batch, ...]``."""
+    from torch.func import functional_call, grad_and_value, vmap
+
+    def loss_of(params, xb, yb, seed, step):
+        preds = functional_call(model, params, (xb,),
+                                {"rng": RowStream(seed, step)})
+        return loss_fn(preds.float(), yb)
+
+    grad_step = vmap(grad_and_value(loss_of), in_dims=(0, 0, 0, 0, None),
+                     randomness="error")
+
+    def epoch(params, opt_state, x_all, y_all, perms, stream_seeds,
+              step0: int):
+        rows = perms.shape[0]
+        if perms.shape[1] < num_batches * batch_size:
+            raise ValueError(f"perms of {n_train} rows have too few entries")
+        idx = perms[:, : num_batches * batch_size].reshape(
+            rows, num_batches, batch_size)
+        model.train()
+        losses = []
+        for i in range(num_batches):
+            batch = idx[:, i]
+            grads, loss = grad_step(params, x_all[batch], y_all[batch],
+                                    stream_seeds, step0 + i)
+            apply_updates(params, tx.update(grads, opt_state, params))
+            losses.append(loss)
+        return torch.stack(losses, dim=1).mean(dim=1)
+
+    return epoch
+
+
+def make_population_eval_fn(model: torch.nn.Module, n_blocks: int,
+                            eval_bs: int) -> Callable:
+    """Masked blockwise eval of a population: ``(params, x, y, mask) ->
+    [K, 4]`` sums of squared error, absolute error, APE and Huber over the
+    unmasked rows, on the device (:func:`eval_metrics_from_sums` turns a
+    row's sums into its metrics after the one read back).  Runs under
+    ``torch.no_grad()``: ``inference_mode`` tensors cannot enter
+    ``vmap``."""
+    from torch.func import functional_call, vmap
+
+    forward = vmap(lambda params, x: functional_call(model, params, (x,)),
+                   in_dims=(0, None), randomness="error")
+
+    def evaluate(params, x_all, y_all, mask) -> torch.Tensor:
+        model.eval()
+        sums = []
+        with torch.no_grad():
+            for i in range(n_blocks):
+                rows = slice(i * eval_bs, (i + 1) * eval_bs)
+                x, y, m = x_all[rows], y_all[rows], mask[rows]
+                preds = forward(params, x).float()
+                se, ae, ape = per_example_losses(preds, y)
+                hub = torch.mean(huber(preds, y, delta=1.0), dim=-1)
+                sums.append(torch.stack([(se * m).sum(1), (ae * m).sum(1),
+                                         (ape * m).sum(1), (hub * m).sum(1)],
+                                        dim=1))
+            return torch.stack(sums).sum(dim=0)
 
     return evaluate
 

@@ -8,7 +8,7 @@ structured logging, JSONL event stream, and the live progress table.
 Port of ``distributed_machine_learning_tpu/tune/callbacks.py``:
 ``Callback``, ``LoggerCallback``, ``JsonlCallback``, ``ProgressReporter``,
 ``with_default_reporter`` and ``dispatch_safely``.  The TensorBoard and
-profiler callbacks are not ported yet (ROADMAP.md A1).
+profiler callbacks are not ported yet (ROADMAP.md A3e).
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ very next epoch and keeps scheduler state single-threaded.  A reported
 checkpoint is written on the trial's thread before the report reaches the
 runner (the JAX package writes on a background thread).
 
-Not ported yet (ROADMAP.md A1): ``ProcessTrialExecutor``, the process per
+Not ported yet (ROADMAP.md A3b): ``ProcessTrialExecutor``, the process per
 trial with device visibility by ``CUDA_VISIBLE_DEVICES``, and the liveness
 watchdog and chaos hooks.
 """

@@ -11,8 +11,9 @@ on-disk layout (``params.json``, ``result.jsonl``, ``experiment_state.json``
 per experiment root), so either package's ``ExperimentAnalysis`` reads the
 other's experiments; checkpoints are the port's pickle-free format
 (``tune/checkpoint.py``).  ``best_model`` returns one ``nn.Module`` with
-the newest checkpoint's parameters loaded.  ``export_bundle`` is not
-ported yet (ROADMAP.md A1).
+the newest checkpoint's parameters loaded (for a ``run_vectorized``
+experiment, each trial's final parameters).  ``export_bundle`` is not
+ported yet (ROADMAP.md A3a).
 """
 
 from __future__ import annotations

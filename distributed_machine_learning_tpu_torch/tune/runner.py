@@ -13,11 +13,13 @@ all scheduler/searcher state is mutated from exactly one thread.
 Trials run on every visible card unless ``devices`` says otherwise; with
 no card and no ``devices`` the run raises.  The knobs of the reference
 that are not ported yet raise ``NotImplementedError`` when set away from
-their defaults (ROADMAP.md A1): ``trial_executor="process"``,
-``prewarm_runners``, ``resume``, ``mesh_shape``, ``input_mode``,
-``trace``, ``trace_profile_trials``, ``progress_deadline_s``,
-``progress_grace_s``, ``time_limit_per_trial_s``, a remote
-``checkpoint_storage``, a PBT/PB2 scheduler and a ``Repeater``.
+their defaults, naming the ROADMAP.md item that will lift them
+(:data:`UNPORTED_KNOB_ITEMS`): ``trial_executor="process"``,
+``prewarm_runners``, ``progress_deadline_s``, ``progress_grace_s`` and
+``time_limit_per_trial_s`` (A3b), ``resume`` (A3c), ``input_mode`` (A6),
+``mesh_shape`` (A9), ``trace`` and ``trace_profile_trials`` (A10), a
+remote ``checkpoint_storage`` (A3f), a PBT/PB2 scheduler (A1 slice c)
+and a ``Repeater`` (A3d).
 ``compile_cache_dir`` and ``checkpoint_format`` have no meaning in the
 port and are not parameters.
 """
@@ -66,16 +68,32 @@ from distributed_machine_learning_tpu_torch.tune.trial import (
 DEFAULT_STORAGE = "~/dml_torch_results"
 
 
+# The ROADMAP.md item that will lift each refused knob.
+UNPORTED_KNOB_ITEMS = {
+    "trial_executor": "A3b",
+    "prewarm_runners": "A3b",
+    "progress_deadline_s": "A3b",
+    "progress_grace_s": "A3b",
+    "time_limit_per_trial_s": "A3b",
+    "resume": "A3c",
+    "input_mode": "A6",
+    "mesh_shape": "A9",
+    "trace": "A10",
+    "trace_profile_trials": "A10",
+}
+
+
 def _refuse_unported(scheduler, knobs: Dict[str, bool]) -> None:
     for knob, is_set in knobs.items():
         if is_set:
             raise NotImplementedError(
-                f"tune.run({knob}=...) is not ported yet; see ROADMAP.md A1"
+                f"tune.run({knob}=...) is not ported yet; see ROADMAP.md "
+                f"{UNPORTED_KNOB_ITEMS[knob]}"
             )
     if type(scheduler).__name__ in ("PopulationBasedTraining", "PB2"):
         raise NotImplementedError(
             f"the {type(scheduler).__name__} scheduler is not ported yet; "
-            f"see ROADMAP.md A1"
+            f"see ROADMAP.md A1 slice c"
         )
 
 

@@ -5,7 +5,7 @@ dict; ``BayesOptSearch`` at `ray-tune-hpo-regression.py:474`; SURVEY.md §2b D2)
 
 Port of ``distributed_machine_learning_tpu/tune/search/base.py``: every
 class.  The ``Repeater`` (``search/repeater.py`` there) is not ported yet
-(ROADMAP.md A1), so :func:`maybe_warm_start` refuses one.
+(ROADMAP.md A3d), so :func:`maybe_warm_start` refuses one.
 """
 
 from __future__ import annotations
@@ -119,7 +119,7 @@ def refuse_repeater(searcher: Searcher) -> None:
     if type(searcher).__name__ == "Repeater":
         raise NotImplementedError(
             "the Repeater searcher (search/repeater.py) is not ported yet; "
-            "see ROADMAP.md A1"
+            "see ROADMAP.md A3d"
         )
 
 

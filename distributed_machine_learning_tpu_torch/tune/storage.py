@@ -8,7 +8,7 @@ backends a local sweep uses, dispatched on the path's scheme:
   tests; no disk, no network)
 
 Remote object storage (``gs://``, ``s3://``: ``FsspecStorage`` there) and
-the chaos fault wrapper are not ported yet (ROADMAP.md A1); any other
+the chaos fault wrapper are not ported yet (ROADMAP.md A3f); any other
 scheme raises ``NotImplementedError``.
 
 ``get_storage`` wraps the backend in ``RetryingStorage``: exponential
@@ -237,7 +237,7 @@ def _raw_storage(path: str) -> Tuple[StorageBackend, str]:
         return _memory, path  # keep full mem:// key
     raise NotImplementedError(
         f"storage scheme {scheme!r}: remote storage (FsspecStorage) is not "
-        f"ported yet; see ROADMAP.md A1"
+        f"ported yet; see ROADMAP.md A3f"
     )
 
 

@@ -324,6 +324,7 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.ops.flops",
     "distributed_machine_learning_tpu_torch.ops.losses",
     "distributed_machine_learning_tpu_torch.ops.optimizers",
+    "distributed_machine_learning_tpu_torch.ops.rng",
     "distributed_machine_learning_tpu_torch.ops.schedules",
     "distributed_machine_learning_tpu_torch.data",
     "distributed_machine_learning_tpu_torch.data.loader",
@@ -334,11 +335,13 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.tune.session",
     "distributed_machine_learning_tpu_torch.tune.trainable",
     "distributed_machine_learning_tpu_torch.tune._regression_program",
+    "distributed_machine_learning_tpu_torch.tune.vectorized",
     "distributed_machine_learning_tpu_torch.utils.device",
     "distributed_machine_learning_tpu_torch.utils.registry",
     "distributed_machine_learning_tpu_torch.utils.seeding",
     "chip_smoke",
     "chip_quickstart",
+    "chip_vectorized",
 ]
 
 

@@ -233,7 +233,7 @@ def test_unsupported_leaves_and_schemes_raise(tmp_path):
         ckpt_lib.save_checkpoint(path, {"a": np.zeros(3)})
     with pytest.raises(TypeError):
         ckpt_lib.save_checkpoint(path, {1: torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A3f"):
         ckpt_lib.save_checkpoint("gs://bucket/ckpt_000001.json",
                                  {"a": torch.zeros(1)})
 
