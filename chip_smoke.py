@@ -74,6 +74,25 @@ nonzero; nothing is caught and passed over):
    step or eval block, the same at K = 8 and K = 1, and each folded kernel
    call of a step held against its plain version (``KERNEL_TOL`` f32).
 
+9. pbt — population-based training on the card.  (a) bench.py's
+   ``ours_pbt`` arm uncut (the headline space, 50 x 20, interval 5, PBT
+   seed 3000, sweep seed 2000) through ``run_vectorized`` compiled, then
+   on the boundary path: their generation logs (src, new lr/wd, exploited)
+   and donor notes equal bit for bit, ``best_config`` equal, final
+   ``validation_mape`` within ``ROW_TOL``, every compiled generation
+   replayed through the host reference step, ``host_dispatches`` 1 and 4,
+   ``generations`` 4 and 3, and no synchronizing CUDA call while the
+   compiled generations are enqueued (torch's sync debug mode).  (b) the
+   same space with flash, 16 x 12, interval 3: each f32 kernel once per
+   layer per population step and eval block across the exploits, and one
+   population step right after an exploit with each folded call within
+   ``KERNEL_TOL``.  (c) PB2 on the boundary path as
+   ``examples/pbt_vectorized.py --scheduler pb2`` runs it, 16 x 12.  (d)
+   respawn PBT through ``tune.run`` (the quickstart's data and widths,
+   flash, 8 x 8, interval 2, 4 lease slots on the card): every trial
+   TERMINATED, requeued trials resumed from a donor's checkpoint with its
+   weights bit for bit and reported ``restore_base + 1`` first.
+
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
 script imports nothing of JAX.
@@ -1805,6 +1824,421 @@ def phase_vectorized():
     return flash
 
 
+# -- phase 9 ----------------------------------------------------------------
+
+# bench.py's ours_pbt arm (:913-995) at FULL: the headline space, 50 rows x
+# 20 epochs, one generation per 5 epochs, its own seeds.
+PBT_HEADLINE = dict(interval=5, pbt_seed=3000, sweep_seed=2000,
+                    quantile=0.25)
+# By the reference step's arithmetic: 12 of 50 rows exploited in each of
+# the 3 generations that fire (the 4th ends the sweep), 2 keys explored.
+PBT_EXPECT = {"compiled": dict(host_dispatches=1, generations=4),
+              "boundary": dict(host_dispatches=4, generations=3),
+              "exploits": 36, "explores": 72}
+# examples/pbt_sweep.py and pbt_vectorized.py's own counts.
+PBT_FLASH = dict(trials=16, epochs=12, interval=3)
+# The README quickstart's data and widths with flash fixed, 8 x 8.
+PBT_RESPAWN = dict(trials=8, epochs=8, interval=2, slots=4)
+
+
+def _pbt_mutations(tune, lr_low=1e-4):
+    return {"learning_rate": tune.loguniform(lr_low, 1e-2),
+            "weight_decay": tune.loguniform(1e-6, 1e-3)}
+
+
+def _counting_syncs(record: dict):
+    """Wrap ``_GroupProgram.pbt_generation_program`` so that every compiled
+    chunk runs under torch's sync debug mode and ``record`` counts the
+    synchronizing CUDA calls made while its generations were enqueued
+    (the read back comes after).  Returns the saved method."""
+    import warnings
+
+    import torch
+
+    from distributed_machine_learning_tpu_torch.tune import vectorized
+
+    saved = vectorized._GroupProgram.pbt_generation_program
+
+    def program(self, *args, **kwargs):
+        run = saved(self, *args, **kwargs)
+
+        def counted(*a, **k):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = run(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = [str(w.message)[:200] for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            record["chunks"] = record.get("chunks", 0) + 1
+            record["syncs"] = record.get("syncs", 0) + len(syncs)
+            record.setdefault("first", syncs[:2])
+            return out
+
+        return counted
+
+    vectorized._GroupProgram.pbt_generation_program = program
+    return saved
+
+
+def _pbt_sweep(tune, train, val, root, tag, space, scheduler, *,
+               num_samples, **kwargs):
+    """One PBT sweep through ``tune.run_vectorized``: the analysis, wall
+    seconds, the ``pbt`` block, launches and compiled-chunk syncs; raises
+    unless every trial ends TERMINATED at full depth."""
+    from distributed_machine_learning_tpu_torch.tune import vectorized
+
+    counters = _reset_counters()
+    syncs: dict = {}
+    saved = _counting_syncs(syncs)
+    t0 = time.monotonic()
+    try:
+        analysis = tune.run_vectorized(
+            space, train_data=train, val_data=val, metric="validation_mape",
+            mode="min", num_samples=num_samples,
+            max_batch_trials=num_samples, scheduler=scheduler,
+            storage_path=root, name=f"pbt_{tag}", verbose=0, **kwargs)
+    finally:
+        vectorized._GroupProgram.pbt_generation_program = saved
+    wall_s = time.monotonic() - t0
+    launches = {c.name: c.count for c in counters}
+    with open(f"{analysis.root}/experiment_state.json") as f:
+        block = json.load(f)["pbt"]
+    bad = {t.trial_id: (t.status.value, t.training_iteration)
+           for t in analysis.trials
+           if t.status.value != "TERMINATED"
+           or t.training_iteration != space["num_epochs"]}
+    if len(analysis.trials) != num_samples or bad:
+        raise AssertionError(f"pbt {tag}: {len(analysis.trials)} trials, "
+                             f"not all TERMINATED at full depth: {bad}")
+    return {"analysis": analysis, "wall_s": wall_s, "block": block,
+            "launches": launches, "syncs": syncs,
+            "trials_per_hour": analysis.num_terminated() * 3600.0 / wall_s}
+
+
+def _pbt_notes(analysis):
+    return sorted((t.trial_id, r["training_iteration"],
+                   r["pbt_exploited_from"]) for t in analysis.trials
+                  for r in t.results if "pbt_exploited_from" in r)
+
+
+def _pbt_headline(tune, train, val, root) -> dict:
+    """(a): the ours_pbt arm uncut, compiled then on the boundary path;
+    their decisions bit for bit, each compiled generation replayed through
+    the host reference step, the counters, no sync inside the compiled
+    chunk, final validation_mape within ROW_TOL."""
+    from distributed_machine_learning_tpu_torch.tune.schedulers.pbt import (
+        generation_draw_count,
+        generation_draws,
+        reference_generation_step,
+    )
+
+    runs, logs = {}, {}
+    for mode, pbt_mode in (("compiled", "auto"), ("boundary", "boundary")):
+        pbt = tune.PopulationBasedTraining(
+            perturbation_interval=PBT_HEADLINE["interval"],
+            hyperparam_mutations=_pbt_mutations(tune),
+            quantile_fraction=PBT_HEADLINE["quantile"],
+            seed=PBT_HEADLINE["pbt_seed"])
+        runs[mode] = _pbt_sweep(
+            tune, train, val, root, mode, headline_space(tune), pbt,
+            num_samples=HEADLINE["num_trials"],
+            seed=PBT_HEADLINE["sweep_seed"], pbt_mode=pbt_mode)
+        logs[mode] = pbt._generation_log
+        spec = pbt.device_mutation_spec()
+    c, b = runs["compiled"], runs["boundary"]
+    fired = [e for e in logs["compiled"] if e["fire"]]
+    keys = ("src", "new_lr", "new_wd", "exploited", "scores")
+    equal = {k: len(fired) == len(logs["boundary"]) and all(
+        np.array_equal(np.asarray(x[k]), np.asarray(y[k]))
+        for x, y in zip(fired, logs["boundary"])) for k in keys}
+    replayed = all(
+        all(np.array_equal(np.asarray(got), want) for got, want in zip(
+            (e["src"], e["new_lr"], e["new_wd"], e["exploited"]),
+            reference_generation_step(
+                spec, e["scores"], e["row_lr"], e["row_wd"], e["valid"],
+                generation_draws(PBT_HEADLINE["pbt_seed"], len(e["scores"]),
+                                 e["gen"], generation_draw_count(spec)),
+                e["fire"])))
+        for e in logs["compiled"])
+    mape = {t.trial_id: t.last_result["validation_mape"]
+            for t in b["analysis"].trials}
+    mape_err = max(abs(t.last_result["validation_mape"] - mape[t.trial_id])
+                   / abs(mape[t.trial_id]) for t in c["analysis"].trials)
+    exploits = int(sum(np.asarray(e["exploited"]).sum()
+                       for e in logs["boundary"]))
+    checks = {
+        "decisions_bit_equal": all(equal[k] for k in keys[:4]),
+        "compiled_replays_reference": replayed,
+        "notes_equal": _pbt_notes(c["analysis"]) == _pbt_notes(
+            b["analysis"]),
+        "best_config_equal": c["analysis"].best_config
+        == b["analysis"].best_config,
+        "mape_within_row_tol": mape_err <= ROW_TOL["validation_mape"],
+        "no_sync_in_compiled_chunk": c["syncs"].get("chunks", 0) == 1
+        and c["syncs"].get("syncs") == 0,
+        **{f"{m}_{k}": runs[m]["block"][k] == v
+           for m in ("compiled", "boundary")
+           for k, v in PBT_EXPECT[m].items()},
+        "exploits_agree": c["block"]["exploits"] == b["block"]["exploits"]
+        == exploits and c["block"]["explores"] == 2 * exploits,
+        "no_late_exploit": not np.asarray(
+            logs["compiled"][-1]["exploited"]).any(),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"pbt headline: {checks}; logs equal {equal}; "
+                             f"compiled {c['block']}, boundary "
+                             f"{b['block']}; syncs {c['syncs']}; mape err "
+                             f"{mape_err}")
+    return {"runs": runs, "checks": checks, "mape_rel_err": mape_err,
+            "scores_bit_equal": equal["scores"], "exploits": exploits,
+            "expected_exploits": PBT_EXPECT["exploits"]}
+
+
+def _pbt_flash(tune, train, val, root) -> dict:
+    """(b): the headline space with flash at 16 x 12, interval 3, compiled:
+    every f32 kernel once per layer per population step and eval block
+    across the exploit gathers; then one population step right after an
+    exploit, each folded call held against its plain version."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+    from distributed_machine_learning_tpu_torch.ops.losses import get_loss
+    from distributed_machine_learning_tpu_torch.tune import vectorized
+    from distributed_machine_learning_tpu_torch.tune._regression_program \
+        import make_population_epoch_fn
+    from distributed_machine_learning_tpu_torch.tune.schedulers.pbt import (
+        generation_draw_count,
+        generation_draws,
+        reference_generation_step,
+    )
+
+    rows, epochs = PBT_FLASH["trials"], PBT_FLASH["epochs"]
+    space = headline_space(tune, num_epochs=epochs, attention_type="flash")
+    pbt = tune.PopulationBasedTraining(
+        perturbation_interval=PBT_FLASH["interval"],
+        hyperparam_mutations=_pbt_mutations(tune), quantile_fraction=0.25,
+        seed=1)
+    run = _pbt_sweep(tune, train, val, root, "flash", space, pbt,
+                     num_samples=rows, seed=7)
+    layers_n = space["num_layers"]
+    steps = run["analysis"].trials[0].results[-1]["steps"]
+    eval_blocks = -(-len(val) // space["batch_size"])
+    want = {"flash_fwd": layers_n * (steps + epochs * eval_blocks),
+            "flash_bwd_dkdv": layers_n * steps,
+            "flash_bwd_dq": layers_n * steps}
+    if (run["launches"] != want or run["block"]["exploits"] < 1
+            or run["syncs"].get("syncs") != 0):
+        raise AssertionError(f"pbt flash: launched {run['launches']}, not "
+                             f"{want}; {run['block']}; syncs {run['syncs']}")
+
+    # One population step right after an exploit.
+    config = dict(run["analysis"].trials[0].config)
+    program = vectorized._GroupProgram(config, train, val,
+                                       torch.device("cuda", 0))
+    lrs = np.geomspace(1e-4, 1e-2, rows).astype(np.float32)
+    wds = np.full(rows, 1e-5, np.float32)
+    state = program.init_population([11 + i for i in range(rows)], lrs, wds)
+    _, metrics = program.read_epochs(*program.run_epochs(state, 0, 1))
+    spec = pbt.device_mutation_spec()
+    src, new_lr, new_wd, exploited = reference_generation_step(
+        spec, metrics["validation_mape"][:, 0], lrs, wds,
+        np.ones(rows, bool), generation_draws(1, rows, 0,
+                                              generation_draw_count(spec)),
+        True)
+    state = program.gather_rows(state, src, new_lr, new_wd)
+    d = program.data
+    step = make_population_epoch_fn(program.model, program.tx,
+                                    get_loss(program.loss_name), d.n_train,
+                                    1, d.batch_size)
+    perms = program.permutations(state, 1)
+    record: dict = {}
+    counters = _reset_counters()
+    saved = fa.flash_forward, fa.flash_backward
+    fa.flash_forward, fa.flash_backward = _checking(record)
+    try:
+        float(step(state.params, state.opt_state, d.x_train, d.y_train,
+                   perms, state.stream_seeds, program.steps_per_epoch).sum())
+    finally:
+        fa.flash_forward, fa.flash_backward = saved
+    per_step = {c.name: c.count for c in counters}
+    tol = KERNEL_TOL["float32"]
+    if (not exploited.any() or record.get("calls") != layers_n
+            or any(n != layers_n for n in per_step.values())
+            or not max(record[n] for n in ("out", "dq", "dk", "dv")) <= tol):
+        raise AssertionError(f"pbt flash: after the exploit "
+                             f"({int(exploited.sum())} rows) a step "
+                             f"launched {per_step}, folded calls {record} "
+                             f"(tol {tol})")
+    run["after_exploit"] = {"exploited_rows": int(exploited.sum()),
+                            "launches_per_step": per_step,
+                            "folded_rel_err": record, "tol": tol}
+    return run
+
+
+def _pbt_pb2(tune, root) -> dict:
+    """(c): PB2 on the boundary path as examples/pbt_vectorized.py
+    --scheduler pb2 runs it, at 16 x 12, interval 3 (its population
+    checkpoints are refused until ROADMAP A1 slice d and left out)."""
+    from distributed_machine_learning_tpu_torch.data import glucose_like_data
+
+    train, val = glucose_like_data(num_steps=60_000, num_features=FEATURES)
+    rows, epochs, interval = (PBT_FLASH["trials"], PBT_FLASH["epochs"],
+                              PBT_FLASH["interval"])
+    space = headline_space(tune, num_epochs=epochs,
+                           learning_rate=tune.loguniform(1e-5, 1e-2))
+    space.pop("compute_dtype")
+    pb2 = tune.PB2(perturbation_interval=interval,
+                   hyperparam_mutations=_pbt_mutations(tune, 1e-5),
+                   quantile_fraction=0.25, seed=1)
+    run = _pbt_sweep(tune, train, val, root, "pb2", space, pb2,
+                     num_samples=rows, epochs_per_dispatch=interval)
+    block = run["block"]
+    if not (block["mode"] == "boundary" and block["num_observations"] > 0
+            and block["num_perturbations"] > 0
+            and block["host_dispatches"] == epochs // interval):
+        raise AssertionError(f"pbt pb2: {block}")
+    return run
+
+
+def _pbt_respawn(tune, root) -> dict:
+    """(d): respawn PBT through ``tune.run`` (README quickstart data and
+    widths, flash fixed, 8 trials x 8 epochs, interval 2, the lr mutated;
+    4 lease slots on the card so that a lagger meets donors still
+    training).  Every trial TERMINATED with at least one requeue; each
+    requeued trial resumed from a donor's checkpoint with its weights bit
+    for bit and reported restore_base + 1 first."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+    from distributed_machine_learning_tpu_torch.tune import (
+        trainable as port_trainable,
+    )
+    from distributed_machine_learning_tpu_torch.tune.checkpoint import (
+        load_checkpoint,
+    )
+
+    train, val = dummy_regression_data(num_samples=1000, seq_len=50,
+                                       num_features=10)
+    restored: dict = {}
+    make_epoch_fn = port_trainable.make_epoch_fn
+
+    def spy(model, *args):
+        trial = tune.session._get_session().trial
+        if trial.restore_path:
+            restored.setdefault(trial.trial_id, []).append((
+                trial.restore_path, trial.restore_base,
+                {k: p.detach().cpu().clone()
+                 for k, p in model.named_parameters()}))
+        return make_epoch_fn(model, *args)
+
+    pbt = tune.PopulationBasedTraining(
+        perturbation_interval=PBT_RESPAWN["interval"],
+        hyperparam_mutations={"learning_rate": tune.loguniform(1e-5, 1e-2)},
+        quantile_fraction=0.25, seed=4)
+    counters = _reset_counters()
+    port_trainable.make_epoch_fn = spy
+    t0 = time.monotonic()
+    try:
+        analysis = tune.run(
+            tune.with_parameters(tune.train_regressor, train_data=train,
+                                 val_data=val),
+            {"model": "transformer",
+             "d_model": tune.choice([64, 128, 256]),
+             "num_heads": tune.choice([2, 4, 8]),
+             "num_layers": tune.choice([2, 4]),
+             "attention_type": "flash",
+             "learning_rate": tune.loguniform(1e-5, 1e-2),
+             "weight_decay": tune.loguniform(1e-6, 1e-2),
+             "num_epochs": PBT_RESPAWN["epochs"], "batch_size": 32},
+            metric="validation_mape", mode="min",
+            num_samples=PBT_RESPAWN["trials"], scheduler=pbt, seed=3,
+            devices=[torch.device("cuda", 0)] * PBT_RESPAWN["slots"],
+            storage_path=root, name="pbt_respawn", verbose=0)
+    finally:
+        port_trainable.make_epoch_fn = make_epoch_fn
+    wall_s = time.monotonic() - t0
+    launches = {c.name: c.count for c in counters}
+    with open(f"{analysis.root}/experiment_state.json") as f:
+        block = json.load(f)["pbt"]
+    by_id = {t.trial_id: t for t in analysis.trials}
+    problems = []
+    for tid, restarts in restored.items():
+        for path, base, weights in restarts:
+            donor_id = path.rsplit("/", 3)[-3]
+            donor = load_checkpoint(path)
+            if donor_id == tid or not all(
+                    torch.equal(weights[k], w)
+                    for k, w in donor["params"].items()):
+                problems.append((tid, path, "weights"))
+            if not any(r["training_iteration"] == base + 1
+                       and r["epoch"] == base
+                       for r in by_id[tid].results):
+                problems.append((tid, base, "first record"))
+    bad = {t.trial_id: t.status.value for t in analysis.trials
+           if t.status.value != "TERMINATED"}
+    if (bad or not restored or problems or block["exploits"]
+            != sum(map(len, restored.values()))
+            or min(launches.values()) < 1):
+        raise AssertionError(f"pbt respawn: not TERMINATED {bad}; restored "
+                             f"{ {k: len(v) for k, v in restored.items()} }; "
+                             f"{problems}; {block}; launches {launches}")
+    return {"analysis": analysis, "wall_s": wall_s, "block": block,
+            "launches": launches,
+            "trials_per_hour": analysis.trials_per_hour(),
+            "requeues": {k: [(p.rsplit("/", 3)[-3], b) for p, b, _ in v]
+                         for k, v in restored.items()}}
+
+
+def _pbt_line(run: dict) -> dict:
+    return {"wall_s": run["wall_s"], "trials_per_hour":
+            run["trials_per_hour"], "pbt": run["block"],
+            "launches": run["launches"],
+            **({"compiled_chunk_syncs": run["syncs"]}
+               if "syncs" in run else {})}
+
+
+def phase_pbt():
+    from distributed_machine_learning_tpu_torch import tune
+
+    t_start = time.monotonic()
+    train, val = headline_data()
+    card = smi_line()
+    with tempfile.TemporaryDirectory() as root:
+        headline = _pbt_headline(tune, train, val, root)
+        for mode, run in headline["runs"].items():
+            emit("pbt", sub=f"a_headline_{mode}", card=card,
+                 rows=HEADLINE["num_trials"], epochs=HEADLINE["num_epochs"],
+                 best_validation_mape=run["analysis"].best_result[
+                     "validation_mape"], **_pbt_line(run))
+        flash = _pbt_flash(tune, train, val, root)
+        emit("pbt", sub="b_flash", card=card, rows=PBT_FLASH["trials"],
+             epochs=PBT_FLASH["epochs"],
+             cut="16 x 12, interval 3 (examples/pbt_sweep.py's counts)",
+             after_exploit=flash["after_exploit"], **_pbt_line(flash))
+        pb2 = _pbt_pb2(tune, root)
+        emit("pbt", sub="c_pb2", card=card, rows=PBT_FLASH["trials"],
+             epochs=PBT_FLASH["epochs"], **_pbt_line(pb2))
+        respawn = _pbt_respawn(tune, root)
+        emit("pbt", sub="d_respawn", card=card,
+             trials=PBT_RESPAWN["trials"], epochs=PBT_RESPAWN["epochs"],
+             slots=PBT_RESPAWN["slots"], requeues=respawn["requeues"],
+             best_config=respawn["analysis"].best_config,
+             **_pbt_line(respawn))
+    emit("pbt", card=card, checks=headline["checks"],
+         headline_mape_rel_err=headline["mape_rel_err"],
+         headline_scores_bit_equal=headline["scores_bit_equal"],
+         headline_exploits=headline["exploits"],
+         headline_expected_exploits=headline["expected_exploits"],
+         cut=None, total_s=time.monotonic() - t_start)
+    return {"flash_population": flash["launches"],
+            "respawn": respawn["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -1825,6 +2259,7 @@ def main() -> int:
     launches, launches_f32 = phase_train()
     launches_tune = phase_tune()
     flash_population = phase_vectorized()
+    launches_pbt = phase_pbt()
 
     sources = {
         "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
@@ -1850,6 +2285,9 @@ def main() -> int:
                 "flash_sweep": flash_population["launches"][name],
                 **{f"per_step_{k}": v[name] for k, v in
                    flash_population["launches_per_step"].items()}},
+            # The pbt phase: the flash PBT population (16 x 12, compiled)
+            # and the respawned flash trials of tune.run.
+            "launches_pbt": {k: v[name] for k, v in launches_pbt.items()},
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},

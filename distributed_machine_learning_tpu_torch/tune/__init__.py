@@ -20,12 +20,13 @@ trial runs outside a sweep under ``tune.session.standalone()``.
 
 Ported so far: ``tune.run`` with the thread executor, the search space,
 ``RandomSearch``/``GridSearch``/``BayesOptSearch`` and warm-start points,
-the FIFO and ASHA schedulers, the stoppers, the experiment store and
+the FIFO, ASHA, PBT and PB2 schedulers, the stoppers, the experiment store and
 analysis, the logger/JSONL/progress callbacks, pickle-free checkpoints,
 the session and ``train_regressor``; and ``tune.run_vectorized``, which
 trains a population of trials as one batched program (the bench
-headline's runner; ``device="cpu"`` without a card).  The rest (TPE,
-HyperBand, the median rule, PBT/PB2, ``Repeater``, the process executor,
+headline's runner, with PBT and PB2 as a row gather of the population;
+``device="cpu"`` without a card).  The rest (TPE,
+HyperBand, the median rule, ``Repeater``, the process executor,
 resume, TensorBoard and profiler callbacks, remote storage, the sharded
 runners) is in ROADMAP.md queue A.
 """
@@ -45,6 +46,8 @@ from distributed_machine_learning_tpu_torch.tune.runner import run
 from distributed_machine_learning_tpu_torch.tune.schedulers import (
     ASHAScheduler,
     FIFOScheduler,
+    PB2,
+    PopulationBasedTraining,
     TrialScheduler,
 )
 from distributed_machine_learning_tpu_torch.tune.search import (
@@ -122,6 +125,8 @@ __all__ = [
     "SearchSpace",
     "ASHAScheduler",
     "FIFOScheduler",
+    "PopulationBasedTraining",
+    "PB2",
     "TrialScheduler",
     "RandomSearch",
     "GridSearch",

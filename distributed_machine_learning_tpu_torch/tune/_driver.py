@@ -7,10 +7,13 @@ retries failed trials from their newest checkpoint, prunes checkpoints
 and enforces the time budget.  (The reference delegated all of this to
 Ray Tune's trial runner; SURVEY.md §1 L4.)
 
+A REQUEUE decision (PBT's exploit) stops the trial at its report and
+runs it again, from the restore target and under the config the
+scheduler chose, when its thread completes.
+
 Not ported yet: the write-ahead journal and experiment resume
-(``restore_experiment``, ``restore_from_journal``; ROADMAP.md A3c), the
-per-trial time limit (A3b), and REQUEUE decisions (PBT's exploit; A1
-slice c), which raise.
+(``restore_experiment``, ``restore_from_journal``; ROADMAP.md A3c) and
+the per-trial time limit (A3b).
 """
 
 from __future__ import annotations
@@ -153,14 +156,11 @@ class TrialLifecycle:
         self.store.append_result(trial, metrics)
         self._prune_checkpoints(trial)
 
+        # Snapshot before the scheduler runs: PBT mutates trial.config in
+        # place on REQUEUE, and the searcher must see the config that
+        # actually produced these metrics.
         reported_config = dict(trial.config)
         decision = self.scheduler.on_trial_result(trial, metrics)
-        if decision == REQUEUE:
-            raise NotImplementedError(
-                f"{type(self.scheduler).__name__} asked to requeue "
-                f"{trial.trial_id}: REQUEUE decisions (PBT) are not ported "
-                f"yet; see ROADMAP.md A1 slice c"
-            )
         self.searcher.on_trial_result(
             trial.trial_id, reported_config, metrics, self.metric, self.mode
         )
@@ -171,6 +171,12 @@ class TrialLifecycle:
                 decision = STOP if decision == CONTINUE else decision
         if trial.stop_requested or self.budget_exceeded():
             decision = STOP
+        if decision == REQUEUE:
+            # PBT exploit: the scheduler rewrote config and restore target
+            # in place; the trial stops here and is requeued on completion.
+            # (The journal records this requeue once it is ported, A3c.)
+            trial._requeue_on_complete = True
+            decision = STOP
         return "stop" if decision == STOP else "continue"
 
     def final_prune(self) -> None:
@@ -180,7 +186,8 @@ class TrialLifecycle:
 
     def _prune_checkpoints(self, trial: Trial):
         """Retention: keep the last k checkpoints of ``trial``, never deleting
-        one that any trial's pending restore (retry) points at."""
+        one that any trial's pending restore (PBT exploit / retry) points
+        at."""
         if self.keep_checkpoints_num <= 0 or not trial.latest_checkpoint:
             return
         from distributed_machine_learning_tpu_torch.tune import (
@@ -200,26 +207,40 @@ class TrialLifecycle:
     # -- terminal events ---------------------------------------------------
 
     def complete_trial(self, trial: Trial) -> bool:
-        """Trial finished cleanly. Returns False: nothing is requeued on
-        completion in the port (no PBT)."""
+        """Trial finished cleanly. Returns True if it was requeued (PBT)."""
+        if getattr(trial, "_requeue_on_complete", False):
+            trial._requeue_on_complete = False
+            self.requeue(trial)
+            return True
         self.finish(trial, TrialStatus.TERMINATED)
         return False
 
     def fail_trial(self, trial: Trial, why: str) -> bool:
         """Trial errored. Returns True if it will be retried."""
         trial.num_failures += 1
+        # A PBT requeue may be pending when the failure lands; the trial is
+        # requeued now, so consume the flag (else its eventual completion
+        # would run it once more).
+        pbt_requeue = getattr(trial, "_requeue_on_complete", False)
+        trial._requeue_on_complete = False
         if trial.num_failures <= self.max_failures:
-            if (
+            if pbt_requeue and trial.restore_path:
+                # Keep the scheduler-chosen restore target (a DONOR's
+                # checkpoint); the scheduler already set restore_base.
+                pass
+            elif (
                 trial.latest_checkpoint
                 and trial.latest_checkpoint_iteration >= trial.restore_base
             ):
                 # Most-advanced restore point available: the trial's own
-                # newest checkpoint.
+                # newest checkpoint, unless the incarnation was seeded by a
+                # donor it has not checkpointed past yet (own checkpoint
+                # older than restore_base), which would undo the exploit.
                 trial.restore_path = trial.latest_checkpoint
                 trial.restore_base = trial.latest_checkpoint_iteration
             elif not trial.restore_path:
                 trial.restore_base = 0
-            # else: keep the previous retry's restore target.
+            # else: keep the seed restore target (donor / previous retry).
             self.log(
                 f"{trial.trial_id} failed "
                 f"({trial.num_failures}/{self.max_failures}): {why.splitlines()[-1] if why else why}; retrying"

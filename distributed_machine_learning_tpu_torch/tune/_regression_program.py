@@ -25,12 +25,20 @@ the loss through ``torch.func.functional_call``, and
 row's dropout seed), so a step of K trials is one batched program.  Each
 row draws its dropout masks from its own counter-based stream
 (``ops/rng.py``), so nothing in a row depends on the others.
+
+The PBT generation step (:func:`make_exploit_explore`,
+:func:`make_pbt_generation_fn`) is the JAX package's
+``make_pbt_generation_fn`` written in torch ops on the population's
+device: ``interval`` population epochs, then the ranking, the exploit
+gather and the lr/wd explore, generation after generation, with nothing
+read back until the caller reads the stacked outputs.  There is no
+``lax.scan``: the generations are enqueued one after another.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -40,8 +48,14 @@ from distributed_machine_learning_tpu_torch.ops.optimizers import (
     InjectedOptimizer,
     PopulationOptimizer,
     apply_updates,
+    set_injected_hyperparams,
+    take_rows,
 )
 from distributed_machine_learning_tpu_torch.ops.rng import RowStream
+from distributed_machine_learning_tpu_torch.tune.schedulers.pbt import (
+    RESAMPLE_GRID_POINTS,
+    resample_grid,
+)
 
 
 def per_example_losses(preds: torch.Tensor, targets: torch.Tensor):
@@ -112,6 +126,46 @@ def eval_metrics_from_sums(
         "validation_mae": float(mae),
         "validation_mape": float(mape),
     }
+
+
+# Metric names the eval produces (plus "train_loss" from the epoch): the
+# keys a PBT generation step can rank on.
+EVAL_METRIC_KEYS = (
+    "validation_loss", "validation_mse", "validation_rmse",
+    "validation_mae", "validation_mape",
+)
+
+
+def make_score_fn(metric: str, loss_name: str, n_val: int) -> Callable:
+    """``score(train_losses [K], sums [K, 4]) -> [K]`` float32 on the
+    device: the metric a PBT generation ranks on, computed from the eval
+    sums in float64 exactly as :func:`eval_metrics_from_sums` computes it
+    on the host, so the device ranks the same float32 scores the host
+    would read back."""
+    if metric != "train_loss" and metric not in EVAL_METRIC_KEYS:
+        raise ValueError(
+            f"PBT metric {metric!r} is not produced by this trainable "
+            f"(have: train_loss, {', '.join(EVAL_METRIC_KEYS)})"
+        )
+    count = max(float(n_val), 1e-9)
+
+    def score(train_losses: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
+        if metric == "train_loss":
+            return train_losses.float()
+        se, ae, ape, hub = sums.double().unbind(-1)
+        mse = se / count
+        by_name = {"mse": mse, "mae": ae / count, "mape": 100.0 * ape / count,
+                   "huber": hub / count, "rmse": torch.sqrt(mse)}
+        value = {
+            "validation_loss": by_name.get(loss_name, mse),
+            "validation_mse": mse,
+            "validation_rmse": by_name["rmse"],
+            "validation_mae": by_name["mae"],
+            "validation_mape": by_name["mape"],
+        }[metric]
+        return value.float()
+
+    return score
 
 
 def make_eval_fn(
@@ -219,6 +273,149 @@ def make_population_eval_fn(model: torch.nn.Module, n_blocks: int,
             return torch.stack(sums).sum(dim=0)
 
     return evaluate
+
+
+def make_exploit_explore(spec: Dict[str, Any], valid, device) -> Callable:
+    """The device form of ``schedulers/pbt.py::reference_generation_step``.
+
+    ``step(scores, lr, wd, draws, fire) -> (src, new_lr, new_wd,
+    exploited)``: ``scores``, ``lr``, ``wd`` ``[K]`` float32 and ``draws``
+    ``[K, n_draws]`` float32 on ``device``; ``fire`` a host bool.  Every
+    operation reproduces the reference bit for bit: a stable three-key
+    sort of (invalid, rank, row index) by successive stable sorts, with
+    non-finite scores ranked ``+inf``; donors are the finite rows of the
+    top quantile in a stable partition; a lagger's donor is
+    ``trunc(u0 * n_ok)`` in float32; the resample is a gather into the
+    host-built grid, the step a float32 multiply and clip.  ``valid``
+    (``[K]`` bools, host) fixes the quantile split; the constants go to
+    the device here, so a step enqueues its work and reads nothing back.
+    """
+    valid = np.asarray(valid, bool)
+    n_rows = len(valid)
+    n_valid = int(valid.sum())
+    q = max(1, int(n_valid * spec["quantile"]))
+    lag_start = max(q, n_valid - q)
+    exploit_possible = n_valid >= 4 and lag_start < n_valid
+
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    rows = torch.arange(n_rows, device=device)
+    invalid = put(~valid, torch.int32)
+    sign = put(np.float32(spec["sign"]), torch.float32)
+    inf = put(np.float32(np.inf), torch.float32)
+    resample_p = put(np.float32(spec["resample_p"]), torch.float32)
+    factors = put(np.asarray(spec["factors"], np.float32), torch.float32)
+    n_factors = len(spec["factors"])
+    explore = []
+    for m, e in enumerate(spec["specs"]):
+        grid = resample_grid(e, spec.get("grid_points", RESAMPLE_GRID_POINTS))
+        explore.append((m, e["key"], put(grid, torch.float32), len(grid),
+                        put(np.float32(e["lo"]), torch.float32),
+                        put(np.float32(e["hi"]), torch.float32)))
+
+    def trunc_index(u: torch.Tensor, n: int) -> torch.Tensor:
+        # numpy's clip(astype(int32)) of a non-negative float32 product.
+        return (u * np.float32(n)).to(torch.int32).clamp(0, n - 1).long()
+
+    def step(scores, lr, wd, draws, fire: bool):
+        if not fire or not exploit_possible:
+            return rows, lr, wd, torch.zeros_like(rows, dtype=torch.bool)
+        s = scores.float() * sign
+        rank = torch.where(torch.isfinite(s), s, inf)
+        # Least significant key first: rank (ties by index), then invalid.
+        by_rank = torch.sort(rank, stable=True).indices
+        order = by_rank[torch.sort(invalid[by_rank], stable=True).indices]
+        donors = order[:q]
+        donor_ok = torch.isfinite(rank[donors])
+        n_ok = donor_ok.sum()
+        # A 0-d index tensor would be read back as an int: slice instead.
+        enabled = (torch.isfinite(rank[order[:1]]) & (n_ok > 0)).squeeze(0)
+        finite_donors = donors[torch.sort((~donor_ok).to(torch.int32),
+                                          stable=True).indices]
+        laggers = order[lag_start:n_valid]
+        d_idx = (draws[laggers, 0] * n_ok.to(torch.float32)).to(torch.int32)
+        d_idx = torch.minimum(d_idx.long(), (n_ok - 1).clamp(min=0))
+        src = rows.clone()
+        src[laggers] = torch.where(enabled, finite_donors[d_idx], laggers)
+        exploited = torch.zeros_like(rows, dtype=torch.bool)
+        exploited[laggers] = enabled.expand(laggers.shape)
+        vals = {"learning_rate": lr, "weight_decay": wd}
+        out = {}
+        for m, key, grid, n_grid, lo, hi in explore:
+            base = vals[key]
+            u_res, u_val = draws[:, 1 + 2 * m], draws[:, 2 + 2 * m]
+            resampled = grid[trunc_index(u_val, n_grid)]
+            stepped = torch.minimum(torch.maximum(
+                base[src] * factors[trunc_index(u_val, n_factors)], lo), hi)
+            cand = torch.where(u_res < resample_p, resampled, stepped)
+            out[key] = torch.where(exploited, cand, base)
+        for key in ("learning_rate", "weight_decay"):
+            if key not in spec["keys"]:
+                # Exploit copies the donor's whole config: a key that is
+                # not mutated still adopts the donor's value.
+                out[key] = torch.where(exploited, vals[key][src], vals[key])
+        return src, out["learning_rate"], out["weight_decay"], exploited
+
+    return step
+
+
+def make_pbt_generation_fn(
+    epoch_fn: Callable,
+    eval_fn: Callable,
+    score_fn: Callable,
+    spec: Dict[str, Any],
+    *,
+    interval: int,
+    num_epochs_total: int,
+    steps_per_epoch: int,
+    valid,
+    device,
+) -> Callable:
+    """The PBT generations of a population, enqueued on its device.
+
+    Returns ``run(params, opt_state, stream_seeds, lr, wd, x, y, xv, yv,
+    mask, perms, draws, gen0, obj_scale) -> (params, opt_state, lr, wd,
+    outputs)``.  ``perms`` ``[g * interval, K, n]`` holds the rows'
+    shuffles of the chunk's epochs and ``draws`` ``[g, K, n_draws]`` the
+    generations' uniforms (``schedulers/pbt.py::generation_draws``), both
+    uploaded before the call; ``obj_scale`` is a float32 device scalar.
+    Each generation runs ``interval`` epochs (``epoch_fn``, ``eval_fn``:
+    the population forms above), scores the rows on the last one
+    (``score_fn``), takes the exploit/explore step (no perturbation after
+    the sweep's last epoch), gathers every parameter and optimizer leaf by
+    ``src`` (``take_rows``) and writes the new lr/wd.  The rows' dropout
+    and shuffle seeds are not gathered: a lagger keeps its own streams.
+    ``outputs`` is one tuple per generation of device tensors: train
+    losses ``[K, interval]``, eval sums ``[K, interval, 4]``, scores,
+    src, new lr, new wd, exploited.  Nothing is read back.
+    """
+    exploit_explore = make_exploit_explore(spec, valid, device)
+
+    def run(params, opt_state, stream_seeds, lr, wd, x, y, xv, yv, mask,
+            perms, draws, gen0: int, obj_scale):
+        outputs = []
+        for gi in range(draws.shape[0]):
+            gen = gen0 + gi
+            losses, sums = [], []
+            for e_off in range(interval):
+                epoch = gen * interval + e_off
+                losses.append(epoch_fn(params, opt_state, x, y,
+                                       perms[gi * interval + e_off],
+                                       stream_seeds, epoch * steps_per_epoch))
+                sums.append(eval_fn(params, xv, yv, mask))
+            losses, sums = torch.stack(losses, 1), torch.stack(sums, 1)
+            scores = score_fn(losses[:, -1], sums[:, -1]) * obj_scale
+            fire = (gen + 1) * interval < num_epochs_total
+            src, lr, wd, exploited = exploit_explore(scores, lr, wd,
+                                                     draws[gi], fire)
+            params = {k: v[src] for k, v in params.items()}
+            opt_state = set_injected_hyperparams(take_rows(opt_state, src),
+                                                 lr, wd)
+            outputs.append((losses, sums, scores, src, lr, wd, exploited))
+        return params, opt_state, lr, wd, outputs
+
+    return run
 
 
 @dataclass

@@ -18,8 +18,11 @@ their defaults, naming the ROADMAP.md item that will lift them
 ``prewarm_runners``, ``progress_deadline_s``, ``progress_grace_s`` and
 ``time_limit_per_trial_s`` (A3b), ``resume`` (A3c), ``input_mode`` (A6),
 ``mesh_shape`` (A9), ``trace`` and ``trace_profile_trials`` (A10), a
-remote ``checkpoint_storage`` (A3f), a PBT/PB2 scheduler (A1 slice c)
-and a ``Repeater`` (A3d).
+remote ``checkpoint_storage`` (A3f) and a ``Repeater`` (A3d).
+``PopulationBasedTraining`` and ``PB2`` run as stop and respawn: a
+bottom-quantile trial is requeued from a top trial's checkpoint under a
+mutated config, and ``experiment_state.json["pbt"]`` counts the
+exploits.
 ``compile_cache_dir`` and ``checkpoint_format`` have no meaning in the
 port and are not parameters.
 """
@@ -50,6 +53,9 @@ from distributed_machine_learning_tpu_torch.tune.experiment import (
 from distributed_machine_learning_tpu_torch.tune.schedulers.base import (
     FIFOScheduler,
     TrialScheduler,
+)
+from distributed_machine_learning_tpu_torch.tune.schedulers.pbt import (
+    pbt_state_block,
 )
 from distributed_machine_learning_tpu_torch.tune.search.base import (
     RandomSearch,
@@ -83,18 +89,13 @@ UNPORTED_KNOB_ITEMS = {
 }
 
 
-def _refuse_unported(scheduler, knobs: Dict[str, bool]) -> None:
+def _refuse_unported(knobs: Dict[str, bool]) -> None:
     for knob, is_set in knobs.items():
         if is_set:
             raise NotImplementedError(
                 f"tune.run({knob}=...) is not ported yet; see ROADMAP.md "
                 f"{UNPORTED_KNOB_ITEMS[knob]}"
             )
-    if type(scheduler).__name__ in ("PopulationBasedTraining", "PB2"):
-        raise NotImplementedError(
-            f"the {type(scheduler).__name__} scheduler is not ported yet; "
-            f"see ROADMAP.md A1 slice c"
-        )
 
 
 def run(
@@ -153,7 +154,7 @@ def run(
         raise ValueError(
             f"trial_executor must be 'thread' or 'process', got {trial_executor!r}"
         )
-    _refuse_unported(scheduler, {
+    _refuse_unported({
         "trial_executor": trial_executor == "process",
         "prewarm_runners": bool(prewarm_runners),
         "resume": resume is not False,
@@ -312,8 +313,8 @@ def run(
             elif kind == "complete":
                 trial = event[1]
                 release_devices(trial)
-                lifecycle.complete_trial(trial)
-                safe_cb("on_trial_complete", trial)
+                if not lifecycle.complete_trial(trial):
+                    safe_cb("on_trial_complete", trial)
                 store.write_state(trials, extra={
                     "scheduler": scheduler_debug_block(searcher, sched),
                 })
@@ -349,6 +350,9 @@ def run(
             "device_utilization": utilization,
             "scheduler": scheduler_debug_block(searcher, sched),
         }
+        pbt_block = pbt_state_block(sched)
+        if pbt_block is not None:
+            extra["pbt"] = pbt_block
         try:
             store.write_state(trials, extra=extra)
             store.close()

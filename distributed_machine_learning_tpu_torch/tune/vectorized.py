@@ -31,9 +31,11 @@ here, since the port runs eagerly and compiles nothing:
 * ``compaction="auto"`` compacts at every halving boundary (the JAX cost
   model with a compile cost of 0; ``"always"`` is the same, ``"never"``
   keeps the rows);
-* ``epochs_per_dispatch`` is accepted and changes nothing: the port
+* ``epochs_per_dispatch`` changes nothing without PBT: the port
   dispatches epoch by epoch, and stops and compaction act per epoch, so
-  the reported results are the same for any value;
+  the reported results are the same for any value.  Under PBT it sizes
+  the dispatch as in the JAX runner (whole generations when compiled, at
+  most one interval on the boundary path);
 * populations are not padded to a size multiple (the TPU's sublane rule).
 
 ``input_mode="streaming"`` falls back to resident staging, counted as
@@ -42,11 +44,25 @@ runner.  Each trial's parameters at its end (its last epoch, or the
 epoch its stop came) are written as one checkpoint in the port's format,
 so ``ExperimentAnalysis.best_model()`` works on a vectorized experiment.
 
-Refused by name, each with the ROADMAP.md item that will lift it: PBT/PB2
-and ``pbt_mode`` (A1 slice c), ``resume``, ``checkpoint_every_epochs`` and
-``checkpoint_format="sharded"`` (A1 slice d, A7), more than one device
-(A9), ``progress_deadline_s``/``progress_grace_s`` (A10) and a
-``compile_cache_dir`` path (A8).
+With a ``PopulationBasedTraining`` or ``PB2`` scheduler the population
+IS the PBT population: exploit is a row gather of every stacked
+parameter and optimizer leaf, explore rewrites the rows' lr/wd, and a
+lagger keeps its own dropout and shuffle seeds.  ``pbt_mode="compiled"``
+(what ``"auto"`` picks when it can) enqueues whole generations on the
+device, ranking and draws included, and reads their stacked outputs back
+once per chunk; ``"boundary"`` reads back once per perturbation interval
+and decides on the host.  Both take their decisions from the same
+deterministic step on the same draws (``schedulers/pbt.py``), so they
+decide the same bit for bit.  PB2, list/quantized/callable specs and
+``stop=`` rules need host decisions every generation and run on the
+boundary path.
+
+Refused by name, each with the ROADMAP.md item that will lift it:
+``resume``, ``checkpoint_every_epochs`` and ``checkpoint_format="sharded"``
+(A1 slice d, A7), more than one device (A9),
+``progress_deadline_s``/``progress_grace_s`` (A10), a
+``compile_cache_dir`` path and PBT's ``objective="quality_after_quant"``
+(A8, ``quant/``).
 """
 
 from __future__ import annotations
@@ -82,8 +98,10 @@ from distributed_machine_learning_tpu_torch.ops.schedules import get_schedule
 from distributed_machine_learning_tpu_torch.tune import checkpoint as ckpt_lib
 from distributed_machine_learning_tpu_torch.tune._regression_program import (
     eval_metrics_from_sums,
+    make_pbt_generation_fn,
     make_population_epoch_fn,
     make_population_eval_fn,
+    make_score_fn,
     stage_data,
 )
 from distributed_machine_learning_tpu_torch.tune.callbacks import (
@@ -101,6 +119,12 @@ from distributed_machine_learning_tpu_torch.tune.schedulers.base import (
     STOP,
     FIFOScheduler,
     TrialScheduler,
+)
+from distributed_machine_learning_tpu_torch.tune.schedulers.pbt import (
+    PopulationBasedTraining,
+    generation_draw_count,
+    generation_draws,
+    reference_generation_step,
 )
 from distributed_machine_learning_tpu_torch.tune.search.base import (
     RandomSearch,
@@ -120,6 +144,7 @@ from distributed_machine_learning_tpu_torch.tune.trial import Trial, TrialStatus
 from distributed_machine_learning_tpu_torch.utils.device import resolve_device
 from distributed_machine_learning_tpu_torch.utils.seeding import (
     init_generators_for,
+    rng_from,
 )
 
 # Hyperparameters that vary across trials *within* one population.
@@ -201,6 +226,9 @@ class _GroupProgram:
         if device.type == "cuda" and cfg.get("attention_type") == "flash":
             # Build the kernels now, so no epoch's time holds an nvcc build.
             flash_attention.build_kernels()
+        # Measured dispatches ({"chunk", "rows", "exec_s"}): the step time
+        # PBT's latency objective prices a population by.
+        self.dispatch_obs: List[Dict[str, float]] = []
 
     def init_population(self, seeds: List[int], lrs, wds) -> PopulationState:
         """Each row initialized as ``train_regressor`` initializes a trial
@@ -227,9 +255,16 @@ class _GroupProgram:
     def permutations(self, state: PopulationState, epoch: int
                      ) -> torch.Tensor:
         """``[K, n_train]``: each row's shuffle for ``epoch``."""
+        return self.chunk_permutations(state, epoch, 1)[0]
+
+    def chunk_permutations(self, state: PopulationState, epoch0: int,
+                           n: int) -> torch.Tensor:
+        """``[n, K, n_train]``: every row's shuffle of epochs ``epoch0`` to
+        ``epoch0 + n - 1``, staged with one upload."""
         return torch.stack([
-            epoch_permutation(s, epoch, self.data.n_train)
-            for s in state.seeds]).to(self.device)
+            torch.stack([epoch_permutation(s, e, self.data.n_train)
+                         for s in state.seeds])
+            for e in range(epoch0, epoch0 + n)]).to(self.device)
 
     def train_epoch(self, state: PopulationState, epoch: int,
                     perms: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -245,17 +280,78 @@ class _GroupProgram:
         d = self.data
         return self._eval(state.params, d.x_val, d.y_val, d.val_mask)
 
-    def run_epoch(self, state: PopulationState, epoch: int
-                  ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-        """One epoch of training and evaluation for every row, with ONE
-        read back at its end: ``(train_losses [K], {metric: [K]})``."""
-        losses = self.train_epoch(state, epoch)
-        sums = self.eval_sums(state)
-        host = torch.cat([losses[:, None].float(), sums], dim=1).cpu().numpy()
+    def run_epochs(self, state: PopulationState, epoch0: int, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``n`` epochs of training and evaluation for every row, left on
+        the device: train losses ``[K, n]`` and eval sums ``[K, n, 4]``."""
+        perms = self.chunk_permutations(state, epoch0, n)
+        losses, sums = [], []
+        for e in range(n):
+            losses.append(self.train_epoch(state, epoch0 + e, perms[e]))
+            sums.append(self.eval_sums(state))
+        return torch.stack(losses, 1), torch.stack(sums, 1)
+
+    def read_epochs(self, losses: torch.Tensor, sums: torch.Tensor
+                    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """ONE read back of :meth:`run_epochs`' outputs: ``(train_losses
+        [K, n] float32, {metric: [K, n]})``."""
+        host = torch.cat([losses[..., None].float(), sums], dim=-1)
+        return self.host_metrics(host.cpu().numpy())
+
+    def host_metrics(self, host: np.ndarray
+                     ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """``host`` ``[K, n, 5]`` (train loss, then the eval sums) as
+        ``(train_losses [K, n], {metric: [K, n]})``."""
+        k, n = host.shape[:2]
         rows = [eval_metrics_from_sums(self.loss_name, *row[1:], self._n_val)
-                for row in host.astype(np.float64)]
-        metrics = {k: np.asarray([r[k] for r in rows]) for k in rows[0]}
-        return host[:, 0], metrics
+                for row in host.reshape(k * n, 5).astype(np.float64)]
+        metrics = {key: np.asarray([r[key] for r in rows]).reshape(k, n)
+                   for key in rows[0]}
+        return host[..., 0].astype(np.float32), metrics
+
+    def gather_rows(self, state: PopulationState, src, lr, wd
+                    ) -> PopulationState:
+        """PBT's exploit: row i takes row ``src[i]``'s parameters and
+        optimizer state, then the rows' lr/wd are set to ``lr``/``wd``
+        (explore).  The dropout-stream and shuffle seeds stay with their
+        rows: a lagger keeps its own identity."""
+        idx = torch.as_tensor(np.asarray(src), dtype=torch.long,
+                              device=self.device)
+        opt_state = take_rows(state.opt_state, idx)
+        set_injected_hyperparams(opt_state, np.asarray(lr, np.float32),
+                                 np.asarray(wd, np.float32))
+        return PopulationState(
+            params={k: v[idx] for k, v in state.params.items()},
+            opt_state=opt_state, stream_seeds=state.stream_seeds,
+            seeds=state.seeds)
+
+    def param_count(self) -> int:
+        """One row's parameter count (the ``params`` term of PBT's
+        multi-objective scalarization)."""
+        return sum(int(p.numel()) for p in self.model.parameters())
+
+    def pbt_generation_program(self, spec: Dict[str, Any], *, interval: int,
+                               valid, metric: str) -> Any:
+        """``make_pbt_generation_fn`` over this group's epoch and eval.
+        Returns ``run(state, lr, wd, perms, draws, gen0, obj_scale) ->
+        (state, outputs)``."""
+        run = make_pbt_generation_fn(
+            self._epoch, self._eval,
+            make_score_fn(metric, self.loss_name, self._n_val), spec,
+            interval=interval, num_epochs_total=self.num_epochs,
+            steps_per_epoch=self.steps_per_epoch, valid=valid,
+            device=self.device)
+
+        def run_state(state, lr, wd, perms, draws, gen0, obj_scale):
+            d = self.data
+            params, opt_state, lr, wd, outputs = run(
+                state.params, state.opt_state, state.stream_seeds, lr, wd,
+                d.x_train, d.y_train, d.x_val, d.y_val, d.val_mask, perms,
+                draws, gen0, obj_scale)
+            return PopulationState(params, opt_state, state.stream_seeds,
+                                   state.seeds), outputs
+
+        return run_state
 
     def select_rows(self, state: PopulationState, keep: List[int]
                     ) -> PopulationState:
@@ -381,15 +477,10 @@ def _stopper_epoch_fraction(sched, num_epochs: int) -> float:
     return min(max(frac_num / num_epochs, g / num_epochs), 1.0)
 
 
-def _refuse_unported(scheduler, *, devices, pbt_mode: str, resume,
+def _refuse_unported(*, devices, pbt_mode: str, resume,
                      checkpoint_every_epochs: int, checkpoint_format: str,
                      progress_deadline_s, progress_grace_s,
                      compile_cache_dir) -> None:
-    if type(scheduler).__name__ in ("PopulationBasedTraining", "PB2"):
-        raise NotImplementedError(
-            f"run_vectorized with the {type(scheduler).__name__} scheduler "
-            f"(vectorized PBT) is not ported yet; see ROADMAP.md A1 slice c"
-        )
     if pbt_mode not in ("auto", "compiled", "boundary"):
         raise ValueError(
             f"pbt_mode must be 'auto', 'compiled' or 'boundary', "
@@ -401,7 +492,6 @@ def _refuse_unported(scheduler, *, devices, pbt_mode: str, resume,
             f"got {checkpoint_format!r}"
         )
     refused = {
-        "pbt_mode": (pbt_mode != "auto", "A1 slice c"),
         "resume": (bool(resume), "A1 slice d"),
         "checkpoint_every_epochs": (bool(checkpoint_every_epochs),
                                     "A1 slice d"),
@@ -463,8 +553,15 @@ def run_vectorized(
     with one entry is the same as ``device``.  ``force_restage``:
     re-stage the data even when a cached program's fingerprint matches.
     ``compile_cache_dir``: ``"auto"`` and ``None`` are accepted; there is
-    nothing to compile.  The module docstring lists the knobs that are
-    refused and the JAX runner's decisions that take no effect here.
+    nothing to compile.  ``pbt_mode`` (with a ``PopulationBasedTraining``
+    or ``PB2`` scheduler): ``"auto"`` takes the compiled path where the
+    scheduler allows it, ``"compiled"`` demands it (raises where PB2,
+    list/quantized/callable specs or ``stop=`` need host decisions),
+    ``"boundary"`` reads back once per interval; the ``pbt`` block of
+    ``experiment_state.json`` (mode, generations, exploits, explores,
+    host_dispatches) records which path ran.  The module docstring lists
+    the knobs that are refused and the JAX runner's decisions that take no
+    effect here.
     """
     if mode not in ("min", "max"):
         raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
@@ -483,7 +580,7 @@ def run_vectorized(
     if device is not None and devices:
         raise ValueError("pass either device or devices, not both")
     _refuse_unported(
-        scheduler, devices=devices, pbt_mode=pbt_mode, resume=resume,
+        devices=devices, pbt_mode=pbt_mode, resume=resume,
         checkpoint_every_epochs=checkpoint_every_epochs,
         checkpoint_format=checkpoint_format,
         progress_deadline_s=progress_deadline_s,
@@ -505,7 +602,22 @@ def run_vectorized(
     searcher = maybe_warm_start(search_alg or RandomSearch(), points_to_evaluate)
     searcher.set_search_space(space, seed)
     sched = scheduler or FIFOScheduler()
+    pbt: Optional[PopulationBasedTraining] = None
+    if isinstance(sched, PopulationBasedTraining):
+        # The population is the PBT population: only hyperparameters that
+        # are optimizer state can mutate in it; the others change the
+        # program and need tune.run's respawn PBT.
+        bad = set(sched.mutations) - {"learning_rate", "weight_decay"}
+        if bad:
+            raise ValueError(
+                f"vectorized PBT can only mutate learning_rate/weight_decay "
+                f"(optimizer-state hyperparams); {sorted(bad)} change the "
+                f"compiled program — use tune.run for those"
+            )
+        pbt = sched
     sched.set_experiment(metric, mode)
+    pbt_compiled, pbt_spec, pbt_counters = _resolve_pbt_mode(
+        pbt, pbt_mode, mode, stop)
 
     name = name or f"vexp_{time.strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:6]}"
     store = ExperimentStore(storage_path, name)
@@ -556,6 +668,16 @@ def run_vectorized(
         if mode_fallbacks or input_mode != "auto":
             extra["host_input"] = {"mode_fallbacks": mode_fallbacks,
                                    "input_mode_requested": input_mode}
+        if pbt is not None:
+            # Which path ran is a property of the artifact: a population
+            # that fell back to the boundary path overrides ``mode``.
+            extra["pbt"] = {
+                "mode": "compiled" if pbt_compiled else "boundary",
+                "objective": pbt.objective,
+                "interval": int(pbt.interval),
+                **pbt_counters,
+                **pbt.debug_state(),
+            }
         try:
             store.write_state(trials, extra=extra)
             store.close()
@@ -601,7 +723,10 @@ def run_vectorized(
                     )
                 pop_rows, pop_exec_s, pop_compactions = _run_population(
                     program, members, sched, searcher, store, metric, mode,
-                    log, compaction, safe_cb, stop_rules=stop,
+                    log, compaction, safe_cb, stop_rules=stop, pbt=pbt,
+                    pbt_compiled=pbt_compiled, pbt_spec=pbt_spec,
+                    pbt_counters=pbt_counters,
+                    epochs_per_dispatch=epochs_per_dispatch,
                 )
                 row_epochs += pop_rows
                 exec_total_s += pop_exec_s
@@ -621,15 +746,53 @@ def run_vectorized(
     return analysis
 
 
+def _resolve_pbt_mode(pbt, pbt_mode: str, mode: str, stop
+                      ) -> Tuple[bool, Optional[Dict[str, Any]],
+                                 Dict[str, Any]]:
+    """``(compiled, device_spec, counters)`` of a PBT sweep, as the JAX
+    runner resolves them: PB2, list/quantized/callable specs and ``stop=``
+    rules force the boundary path, and ``pbt_mode="compiled"`` raises
+    where it is forced."""
+    if pbt is None:
+        return False, None, {}
+    if pbt.quant_aware:
+        raise NotImplementedError(
+            "PopulationBasedTraining(objective='quality_after_quant') needs "
+            "the int8 re-scoring of quant/, which is not ported yet; see "
+            "ROADMAP.md A8"
+        )
+    if pbt.objective_weights != (0.0, 0.0) and mode != "min":
+        raise ValueError(
+            "PopulationBasedTraining(objective=...) scalarizes "
+            "quality x latency x params as a COST product — it is only "
+            "defined for mode='min' metrics"
+        )
+    spec = pbt.device_mutation_spec()
+    reasons = []
+    if spec is None:
+        reasons.append("the scheduler/mutation specs need per-generation "
+                       "host decisions (PB2, list/quantized/callable specs)")
+    if stop is not None:
+        reasons.append("stop= rules decide per epoch on host")
+    if pbt_mode == "compiled" and reasons:
+        raise ValueError("pbt_mode='compiled' is impossible here: "
+                         + "; ".join(reasons))
+    counters = {"generations": 0, "exploits": 0, "explores": 0,
+                "host_dispatches": 0}
+    return pbt_mode != "boundary" and not reasons, spec, counters
+
+
 def _emit_epoch_records(
     batch, rows, active, lrs, epoch, step_count, shape_val, now,
     train_losses, metrics_np, sched, searcher, store, metric, mode,
-    safe_cb=lambda *a: None, stop_rules=None,
+    safe_cb=lambda *a: None, stop_rules=None, pbt_notes=None, pbt=None,
 ):
     """Append one epoch's records for every live trial and route them
     through the scheduler/searcher (the vectorized analogue of
-    ``session.report``).  The JAX helper's PBT notes and pad rows are left
-    out: the port runs no vectorized PBT and pads no population."""
+    ``session.report``).  Under PBT a record right after an exploit notes
+    its donor (``pbt_exploited_from``), and the scheduler only observes
+    (PB2's model learns; the row gather replaces its decisions).  The port
+    pads no population, so it has no pad rows to skip."""
     for i, r in enumerate(rows):
         trial = batch[r]
         if not active[r]:
@@ -646,13 +809,20 @@ def _emit_epoch_records(
             "population_size": len(rows),
             **{key: float(v[i]) for key, v in metrics_np.items()},
         }
+        note = pbt_notes.pop(r, None) if pbt_notes is not None else None
+        if note is not None:
+            record["pbt_exploited_from"] = note
         trial.results.append(record)
         # Keep Trial.training_iteration live (== epochs completed), the
         # same contract the threaded executor maintains via report().
         trial.reports_since_restart += 1
         store.append_result(trial, record)
         safe_cb("on_trial_result", trial, record)
-        decision = sched.on_trial_result(trial, record)
+        if pbt is not None:
+            pbt.observe_result(trial, record)
+            decision = CONTINUE
+        else:
+            decision = sched.on_trial_result(trial, record)
         searcher.on_trial_result(
             trial.trial_id, dict(trial.config), record, metric, mode
         )
@@ -702,6 +872,156 @@ def _save_final(program, store, state, trial: Trial, i: int) -> None:
     trial.latest_checkpoint_iteration = trial.training_iteration
 
 
+def _pbt_objective_scale(pbt, program) -> float:
+    """The constant scalarization factor of the multi-objective score:
+    ``step_latency_s ** lat_w * param_millions ** param_w``.
+
+    Latency is the population's measured step time (the newest dispatch
+    in ``program.dispatch_obs``, which rides the cross-call program cache,
+    so a warm sweep prices itself from the prior sweep; 1.0 before any
+    measurement) and params the group's per-row parameter count; both are
+    constant across the rows, so in-population ranking is unchanged.
+    Frozen per population: re-reading the latency between generations
+    would break the compiled-vs-boundary decision parity."""
+    lat_w, par_w = pbt.objective_weights
+    if lat_w == 0.0 and par_w == 0.0:
+        return 1.0
+    scale = 1.0
+    if lat_w:
+        obs = [o for o in getattr(program, "dispatch_obs", [])
+               if o.get("exec_s") and o.get("chunk")]
+        if obs:
+            o = obs[-1]
+            step_s = o["exec_s"] / max(o["chunk"] * program.steps_per_epoch,
+                                       1)
+            scale *= step_s ** lat_w
+    if par_w:
+        scale *= (program.param_count() / 1e6) ** par_w
+    # float32: the device multiplies scores by this as an f32 scalar and
+    # the host reference must see the same bits.
+    return float(np.float32(scale))
+
+
+def _inject_objective(pbt, obj_scale, train_losses, metrics_np):
+    """Attach the scalarized objective as a per-epoch record metric
+    (``pbt_objective``) when multi-objective ranking is on."""
+    if pbt is None or pbt.objective_weights == (0.0, 0.0):
+        return metrics_np
+    col = (train_losses if pbt.metric == "train_loss"
+           else metrics_np.get(pbt.metric))
+    if col is None:
+        return metrics_np
+    out = dict(metrics_np)
+    out["pbt_objective"] = np.asarray(col, np.float32) * np.float32(obj_scale)
+    return out
+
+
+def _apply_reference_exploits(batch, rows, lrs, wds, pbt, pbt_notes,
+                              src, new_lr, new_wd, exploited, mut_keys):
+    """Mirror one generation's exploit decisions into the host
+    bookkeeping: a lagger's config becomes the donor's with the perturbed
+    hyperparams (it keeps its own seed), its improvement chain resets, and
+    the donor note annotates its next record.  Returns the (lagger, donor)
+    trial-id pairs."""
+    pairs = []
+    for i in np.flatnonzero(np.asarray(exploited)):
+        i = int(i)
+        r = rows[i]
+        lagger, donor = batch[r], batch[rows[int(src[i])]]
+        new_cfg = dict(donor.config)
+        new_cfg["learning_rate"] = float(new_lr[i])
+        if "weight_decay" in new_cfg or "weight_decay" in mut_keys:
+            new_cfg["weight_decay"] = float(new_wd[i])
+        new_cfg["seed"] = lagger.config.get("seed", 0)
+        lagger.config = new_cfg
+        pbt.reset_improvement_chain(lagger.trial_id)
+        lrs[r] = float(new_lr[i])
+        wds[r] = float(new_wd[i])
+        pbt_notes[r] = donor.trial_id
+        pairs.append((lagger.trial_id, donor.trial_id))
+        pbt._num_perturbations += 1
+    return pairs
+
+
+def _pbt_dispatch(program, pbt, compiled: bool, epochs_per_dispatch,
+                  stop_rules, counters, log) -> Tuple[int, int, bool]:
+    """``(epochs per dispatch, generations per compiled dispatch,
+    compiled)`` of a PBT population, by the JAX runner's rules: the
+    compiled path dispatches whole generations (all of them under
+    ``"auto"``), the boundary path at most one interval, rounded down to
+    a divisor of ``num_epochs``.  A compiled dispatch below one interval
+    falls back to the boundary path, counted in ``mode_fallbacks``."""
+    iv = max(int(pbt.interval), 1)
+    num_epochs = program.num_epochs
+    if epochs_per_dispatch == "auto":
+        dispatch = num_epochs if compiled else iv
+        if stop_rules is not None:
+            dispatch = 1  # stop rules act at dispatch boundaries
+    else:
+        dispatch = max(int(epochs_per_dispatch), 1)
+    chunk_gens = 0
+    if compiled:
+        chunk_gens = dispatch // iv
+        if chunk_gens < 1:
+            log(f"PBT falling back to boundary mode: dispatch chunk "
+                f"{dispatch} < perturbation interval {iv}")
+            compiled = False
+            counters["mode"] = "boundary"
+            counters["mode_fallbacks"] = counters.get("mode_fallbacks", 0) + 1
+        elif chunk_gens * iv != dispatch:
+            log(f"epochs_per_dispatch rounded {dispatch} -> "
+                f"{chunk_gens * iv} (whole generations of {iv} epochs)")
+            dispatch = chunk_gens * iv
+    if not compiled and dispatch > iv:
+        # One gather per dispatch boundary: a larger chunk would drop
+        # perturbations, not delay them.
+        log(f"epochs_per_dispatch clamped {dispatch} -> {iv} to match the "
+            f"PBT perturbation interval (boundary mode)")
+        dispatch = iv
+    if dispatch > 1 and not compiled and num_epochs % dispatch:
+        d = dispatch
+        while num_epochs % d:
+            d -= 1
+        log(f"epochs_per_dispatch rounded {dispatch} -> {d} (largest "
+            f"divisor of num_epochs={num_epochs})")
+        dispatch = d
+    return dispatch, chunk_gens, compiled
+
+
+def _read_generations(outputs, program) -> List[Dict[str, np.ndarray]]:
+    """The stacked outputs of a compiled chunk, read back ONCE (every
+    tensor packed into one float64 vector; float32 values, row indices
+    and flags are exact in it)."""
+    parts = [torch.cat([t.double().reshape(-1) for t in gen])
+             for gen in outputs]
+    host = torch.cat(parts).cpu().numpy()
+    out, pos = [], 0
+    for (tl, sums, *_), part in zip(outputs, parts):
+        k, iv = tl.shape
+        flat = host[pos:pos + part.numel()]
+        pos += part.numel()
+        a, b = k * iv, k * iv * 5
+        train_losses, metrics = program.host_metrics(np.concatenate(
+            [flat[:a].reshape(k, iv, 1), flat[a:b].reshape(k, iv, 4)], -1))
+        scores, src, new_lr, new_wd, exploited = flat[b:].reshape(5, k)
+        out.append({
+            "train_losses": train_losses, "metrics": metrics,
+            "scores": scores.astype(np.float32),
+            "src": src.astype(np.int64),
+            "new_lr": new_lr.astype(np.float32),
+            "new_wd": new_wd.astype(np.float32),
+            "exploited": exploited.astype(bool),
+        })
+    return out
+
+
+def _note_dispatch(program, chunk: int, rows: int, exec_s: float) -> None:
+    obs = getattr(program, "dispatch_obs", None)
+    if obs is not None:
+        obs.append({"chunk": chunk, "rows": rows, "exec_s": exec_s})
+        del obs[:-32]
+
+
 def _run_population(
     program: _GroupProgram,
     batch: List[Trial],
@@ -714,13 +1034,20 @@ def _run_population(
     compaction: str = "auto",
     safe_cb=lambda *a: None,
     stop_rules=None,
+    *,
+    pbt=None,
+    pbt_compiled: bool = False,
+    pbt_spec=None,
+    pbt_counters=None,
+    epochs_per_dispatch="auto",
 ) -> Tuple[int, float, int]:
     """Train one population of K same-shape trials to completion.
 
     Returns ``(row_epochs, exec_seconds, compactions)``: trial-epochs
     actually computed (rows x epochs, the honest cost under compaction),
     dispatch-to-sync seconds, and how many times the population was
-    compacted."""
+    compacted.  Without PBT a dispatch is one epoch; under PBT see
+    :func:`_pbt_dispatch`."""
     k = len(batch)
     now = time.time()
     for t in batch:
@@ -738,34 +1065,160 @@ def _run_population(
     # row i.  Compaction cuts stopped rows out and shrinks this mapping.
     rows = list(range(k))
     row_epochs, exec_total_s, compactions = 0, 0.0, 0
-    for epoch in range(program.num_epochs):
-        t0 = time.time()
-        train_losses, metrics_np = program.run_epoch(state, epoch)
-        exec_s = time.time() - t0
-        exec_total_s += exec_s
-        row_epochs += len(rows)
+    num_epochs = program.num_epochs
+    counters = pbt_counters if pbt_counters is not None else {}
+    pbt_notes: Dict[int, str] = {}  # trial index -> donor id, for the record
+    dispatch, chunk_gens, iv = 1, 0, 1
+    if pbt is not None:
+        iv = max(int(pbt.interval), 1)
+        dispatch, chunk_gens, pbt_compiled = _pbt_dispatch(
+            program, pbt, pbt_compiled, epochs_per_dispatch, stop_rules,
+            counters, log)
+    # The deterministic step's state: each row's lr/wd as the decision
+    # step last produced them (the float32 bits the optimizer carries),
+    # and the frozen objective scale.
+    mut_keys: Tuple[str, ...] = ()
+    row_lr = row_wd = None
+    obj_scale = 1.0
+    if pbt is not None and pbt_spec is not None:
+        mut_keys = tuple(pbt_spec["keys"])
+        row_lr, row_wd = lrs.copy(), wds.copy()
+        obj_scale = _pbt_objective_scale(pbt, program)
+        if obj_scale != 1.0:
+            log(f"PBT multi-objective ranking: scores scaled by "
+                f"{obj_scale:.3g} ({pbt.objective})")
+
+    def emit(epoch, train_losses, metrics_np, now):
         step_count = (epoch + 1) * program.steps_per_epoch
         shape_val = float(
             program.shape_schedule(min(step_count, program.total_steps)))
-        was_active = list(active)
+        metrics_np = _inject_objective(pbt, obj_scale, train_losses,
+                                       metrics_np)
         _emit_epoch_records(
-            batch, rows, active, lrs, epoch, step_count, shape_val,
-            time.time(), train_losses, metrics_np, sched, searcher, store,
-            metric, mode, safe_cb, stop_rules,
+            batch, rows, active, lrs, epoch, step_count, shape_val, now,
+            train_losses, metrics_np, sched, searcher, store, metric, mode,
+            safe_cb, stop_rules, pbt_notes, pbt,
         )
+
+    epoch0 = 0
+    while epoch0 < num_epochs:
+        if (pbt_compiled and epoch0 % iv == 0
+                and num_epochs - epoch0 >= iv):
+            # ---- compiled PBT: g generations enqueued, one read back ----
+            g = min(chunk_gens, (num_epochs - epoch0) // iv)
+            gen0 = epoch0 // iv
+            valid = np.asarray([active[r] for r in rows])
+            run = program.pbt_generation_program(
+                pbt_spec, interval=iv, valid=valid, metric=pbt.metric)
+            t0 = time.time()
+            n_draws = generation_draw_count(pbt_spec)
+            draws = np.stack([generation_draws(pbt.seed, len(rows), gen,
+                                               n_draws)
+                              for gen in range(gen0, gen0 + g)])
+            dev = program.device
+            state, outputs = run(
+                state, torch.as_tensor(row_lr, device=dev),
+                torch.as_tensor(row_wd, device=dev),
+                program.chunk_permutations(state, epoch0, g * iv),
+                torch.as_tensor(draws, device=dev), gen0,
+                torch.as_tensor(np.float32(obj_scale), device=dev))
+            gens = _read_generations(outputs, program)
+            exec_s = time.time() - t0
+            exec_total_s += exec_s
+            row_epochs += len(rows) * g * iv
+            _note_dispatch(program, g * iv, len(rows), exec_s)
+            counters["host_dispatches"] += 1
+            counters["generations"] += g
+            t_end = time.time()
+            for gi, out in enumerate(gens):
+                gen = gen0 + gi
+                for e_off in range(iv):
+                    n_done = gi * iv + e_off + 1
+                    emit(gen * iv + e_off, out["train_losses"][:, e_off],
+                         {m: v[:, e_off] for m, v in out["metrics"].items()},
+                         t0 + n_done * (t_end - t0) / (g * iv))
+                # Notes annotate the NEXT generation's first record, as on
+                # the boundary path.
+                pbt._generation_log.append({
+                    "gen": gen, "fire": bool((gen + 1) * iv < num_epochs),
+                    "scores": out["scores"], "row_lr": row_lr.copy(),
+                    "row_wd": row_wd.copy(), "valid": valid,
+                    "src": out["src"], "new_lr": out["new_lr"],
+                    "new_wd": out["new_wd"], "exploited": out["exploited"],
+                })
+                pairs = _apply_reference_exploits(
+                    batch, rows, lrs, wds, pbt, pbt_notes, out["src"],
+                    out["new_lr"], out["new_wd"], out["exploited"], mut_keys)
+                counters["exploits"] += len(pairs)
+                counters["explores"] += len(pairs) * len(mut_keys)
+                if pairs:
+                    log(f"PBT epoch {(gen + 1) * iv - 1} (on the device): "
+                        + ", ".join(f"{a}<-{b}" for a, b in pairs))
+                row_lr, row_wd = out["new_lr"].copy(), out["new_wd"].copy()
+            safe_cb("on_heartbeat")
+            epoch0 += g * iv
+            continue
+
+        chunk = min(dispatch, num_epochs - epoch0)
+        t0 = time.time()
+        tl_chunk, metrics_chunk = program.read_epochs(
+            *program.run_epochs(state, epoch0, chunk))
+        if pbt is not None:
+            counters["host_dispatches"] += 1
+        exec_s = time.time() - t0
+        exec_total_s += exec_s
+        row_epochs += len(rows) * chunk
+        _note_dispatch(program, chunk, len(rows), exec_s)
+        t_end = time.time()
+        was_active = list(active)
+        for e_off in range(chunk):
+            emit(epoch0 + e_off, tl_chunk[:, e_off],
+                 {m: v[:, e_off] for m, v in metrics_chunk.items()},
+                 time.time() if chunk == 1
+                 else t0 + (e_off + 1) * (t_end - t0) / chunk)
         for i, r in enumerate(rows):
             if was_active[r] and not active[r]:
                 _save_final(program, store, state, batch[r], i)
+        epoch0 += chunk
+        epoch = epoch0 - 1  # last completed epoch (PBT/compaction below)
         safe_cb("on_heartbeat")
+
+        # ---- boundary PBT: the host decides, the device gathers ---------
+        if (pbt is not None and not pbt_compiled
+                and epoch0 // iv > (epoch0 - chunk) // iv
+                and epoch0 < num_epochs):
+            if pbt.metric in metrics_chunk:
+                scores = metrics_chunk[pbt.metric][:, -1]
+            elif pbt.metric == "train_loss":
+                scores = tl_chunk[:, -1]
+            else:
+                raise ValueError(
+                    f"PBT metric {pbt.metric!r} is not produced by this "
+                    f"trainable (have: train_loss, "
+                    f"{', '.join(sorted(metrics_chunk))})"
+                )
+            counters["generations"] += 1
+            if pbt_spec is not None:
+                state, row_lr, row_wd = _boundary_generation(
+                    program, state, batch, rows, active, lrs, wds, pbt,
+                    pbt_spec, pbt_notes, scores, obj_scale, row_lr, row_wd,
+                    (epoch0 - 1) // iv, epoch, mut_keys, counters, log)
+            else:
+                state = _boundary_host_mutations(
+                    program, state, batch, rows, active, lrs, wds, pbt,
+                    pbt_notes, scores, epoch, counters, log)
+
         if not any(active[r] for r in rows):
             log(f"population fully early-stopped at epoch {epoch}")
             break
-        keep = _compaction_keep(rows, active, program.num_epochs - epoch - 1,
+        keep = _compaction_keep(rows, active, num_epochs - epoch - 1,
                                 compaction)
         if keep is not None:
             live = sum(1 for r in rows if active[r])
             state = program.select_rows(state, keep)
             rows = [rows[i] for i in keep]
+            if row_lr is not None:
+                row_lr, row_wd = row_lr[keep], row_wd[keep]
             compactions += 1
             log(f"compacted population -> {len(rows)} rows ({live} live) "
                 f"at epoch {epoch}")
@@ -784,3 +1237,83 @@ def _run_population(
             )
             safe_cb("on_trial_complete", trial)
     return row_epochs, exec_total_s, compactions
+
+
+def _boundary_generation(program, state, batch, rows, active, lrs, wds, pbt,
+                         spec, pbt_notes, scores, obj_scale, row_lr, row_wd,
+                         gen, epoch, mut_keys, counters, log):
+    """One generation on the boundary path through the host reference
+    step, on the draws the compiled path uses, so both paths decide the
+    same bit for bit.  Returns ``(state, row_lr, row_wd)``."""
+    valid = np.asarray([active[r] for r in rows])
+    draws = generation_draws(pbt.seed, len(rows), gen,
+                             generation_draw_count(spec))
+    scores_f = np.asarray(scores, np.float32) * np.float32(obj_scale)
+    src, new_lr, new_wd, exploited = reference_generation_step(
+        spec, scores_f, row_lr, row_wd, valid, draws, True)
+    pbt._generation_log.append({
+        "gen": gen, "fire": True, "scores": scores_f.copy(),
+        "row_lr": row_lr.copy(), "row_wd": row_wd.copy(), "valid": valid,
+        "src": src.copy(), "new_lr": new_lr.copy(), "new_wd": new_wd.copy(),
+        "exploited": exploited.copy(),
+    })
+    pairs = _apply_reference_exploits(batch, rows, lrs, wds, pbt, pbt_notes,
+                                      src, new_lr, new_wd, exploited,
+                                      mut_keys)
+    counters["exploits"] += len(pairs)
+    counters["explores"] += len(pairs) * len(mut_keys)
+    if pairs:
+        # Exploit: laggers adopt donors' weights AND optimizer state in one
+        # gather on the device; explore lands in their lr/wd.
+        state = program.gather_rows(state, src, new_lr, new_wd)
+        log(f"PBT epoch {epoch}: " + ", ".join(f"{a}<-{b}" for a, b in pairs))
+    return state, new_lr.copy(), new_wd.copy()
+
+
+def _boundary_host_mutations(program, state, batch, rows, active, lrs, wds,
+                             pbt, pbt_notes, scores, epoch, counters, log):
+    """One generation for PB2 and the specs the device step cannot take
+    (list, quantized, callable): the quantile split on the host, each
+    lagger's donor and mutation from ``rng_from("vpbt", ...)`` and the
+    scheduler's ``_mutate`` (PB2's GP-UCB), then the gather."""
+    sign = 1.0 if pbt.mode == "min" else -1.0
+
+    def rank_key(value: float) -> float:
+        # Non-finite rows never donate and are first in line for rescue.
+        v = sign * value
+        return v if np.isfinite(v) else np.inf
+
+    # A row a stopper terminated neither donates nor is rescued.
+    live = sorted((rank_key(float(scores[i])), i, r)
+                  for i, r in enumerate(rows) if active[r])
+    if len(live) < 4 or not np.isfinite(live[0][0]):
+        return state
+    q = max(1, int(len(live) * pbt.quantile))
+    # Donors must be finite (a smaller pool, never an inf-ranked one).
+    top = [t for t in live[:q] if np.isfinite(t[0])]
+    src = np.arange(len(rows))
+    exploited = []
+    for _, i, r in live[-q:]:
+        rng = rng_from("vpbt", pbt.seed, batch[r].trial_id, epoch + 1)
+        _, di, dr = top[int(rng.integers(len(top)))]
+        src[i] = di
+        donor, lagger = batch[dr], batch[r]
+        # Explore: mutate the donor's hyperparams; the lagger keeps its own
+        # identity and seed.
+        new_cfg = pbt._mutate(dict(donor.config), rng)
+        new_cfg["seed"] = lagger.config.get("seed", 0)
+        lagger.config = new_cfg
+        pbt.reset_improvement_chain(lagger.trial_id)
+        lrs[r] = float(new_cfg["learning_rate"])
+        wds[r] = float(new_cfg.get("weight_decay", 0.0))
+        pbt_notes[r] = donor.trial_id
+        exploited.append((lagger.trial_id, donor.trial_id))
+        pbt._num_perturbations += 1
+    counters["exploits"] += len(exploited)
+    counters["explores"] += len(exploited) * len(pbt.mutations)
+    if exploited:
+        state = program.gather_rows(state, src, [lrs[r] for r in rows],
+                                    [wds[r] for r in rows])
+        log(f"PBT epoch {epoch}: "
+            + ", ".join(f"{a}<-{b}" for a, b in exploited))
+    return state

@@ -336,6 +336,8 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.tune.trainable",
     "distributed_machine_learning_tpu_torch.tune._regression_program",
     "distributed_machine_learning_tpu_torch.tune.vectorized",
+    "distributed_machine_learning_tpu_torch.tune.schedulers.pbt",
+    "distributed_machine_learning_tpu_torch.tune.schedulers.pb2",
     "distributed_machine_learning_tpu_torch.utils.device",
     "distributed_machine_learning_tpu_torch.utils.registry",
     "distributed_machine_learning_tpu_torch.utils.seeding",

@@ -352,10 +352,6 @@ def test_unported_knobs_raise(knob, value, tmp_path):
 def test_unported_schedulers_searchers_and_arguments_raise(tmp_path):
     kwargs = dict(metric=METRIC, devices=[CPU], storage_path=str(tmp_path),
                   verbose=0)
-    pbt = jax_tune.PopulationBasedTraining(
-        hyperparam_mutations={"learning_rate": [1e-3, 1e-2]})
-    with pytest.raises(NotImplementedError, match="PopulationBasedTraining"):
-        tune.run(_scripted(tune, 1), _space(tune), scheduler=pbt, **kwargs)
     repeater = jax_tune.Repeater(tune.RandomSearch(), repeat=2)
     with pytest.raises(NotImplementedError, match="Repeater"):
         tune.run(_scripted(tune, 1), _space(tune), search_alg=repeater,

@@ -310,10 +310,14 @@ class _PortScripted:
     def init_population(self, seeds, lrs, wds):
         return {"row": np.arange(len(seeds)), "lr": np.asarray(lrs)}
 
-    def run_epoch(self, state, epoch):
-        pairs = [_scripted(lr, row, epoch)
+    def run_epochs(self, state, epoch0, n):
+        assert n == 1  # without PBT the port dispatches epoch by epoch
+        pairs = [_scripted(lr, row, epoch0)
                  for lr, row in zip(state["lr"], state["row"])]
-        tl, mape = (np.asarray(c, np.float32) for c in zip(*pairs))
+        tl, mape = (np.asarray(c, np.float32)[:, None] for c in zip(*pairs))
+        return tl, mape
+
+    def read_epochs(self, tl, mape):
         return tl, {"validation_mape": mape}
 
     def select_rows(self, state, keep):
@@ -487,7 +491,6 @@ def _tiny_space():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("pbt_mode", "compiled", "A1 slice c"),
     ("resume", True, "A1 slice d"),
     ("checkpoint_every_epochs", 1, "A1 slice d"),
     ("checkpoint_format", "sharded", "A7"),
@@ -513,10 +516,11 @@ def test_unported_schedulers_configs_and_a_missing_card_raise(tmp_path,
     train, val = dummy_regression_data(**DATA)
     kwargs = dict(train_data=train, val_data=val, metric="validation_mape",
                   storage_path=str(tmp_path), verbose=0)
-    pbt = jax_tune.PopulationBasedTraining(
-        hyperparam_mutations={"learning_rate": [1e-3, 1e-2]})
+    pbt = tune.PopulationBasedTraining(
+        hyperparam_mutations={"learning_rate": [1e-3, 1e-2]},
+        objective="quality_after_quant")
     with pytest.raises(NotImplementedError,
-                       match="PopulationBasedTraining.*A1 slice c"):
+                       match="quality_after_quant.*ROADMAP.md A8$"):
         tune.run_vectorized(_tiny_space(), scheduler=pbt, device="cpu",
                             **kwargs)
     with pytest.raises(NotImplementedError, match="rng_impl='rbg'"):
