@@ -92,6 +92,29 @@ nonzero; nothing is caught and passed over):
    flash, 8 x 8, interval 2, 4 lease slots on the card): every trial
    TERMINATED, requeued trials resumed from a donor's checkpoint with its
    weights bit for bit and reported ``restore_base + 1`` first.
+10. resume — interrupted sweeps resumed, each against an uninterrupted
+   run of the same spec in this process.  (a) phase vectorized's ASHA
+   headline (50 x 20) through ``run_vectorized(checkpoint_every_epochs=5)``,
+   interrupted on the first record of epoch 12 (the planted scheduler
+   raises) and resumed with ``resume=True`` from the epoch-10 checkpoint,
+   written after the second compaction: every trial TERMINATED, the same
+   stop iterations, population sizes, row-epochs, compactions and
+   ``best_config``, each ``training_iteration`` once in ``result.jsonl``,
+   final parameters and ``validation_mape`` within ``ROW_TOL`` (and
+   whether they are bit-equal); each population save's ms and bytes.
+   (b) the flash group at 8 x 6, saved every 2 epochs and interrupted at
+   3: after the resume each f32 kernel once per layer per population step
+   and eval block, and one step from the checkpoint with each folded call
+   within ``KERNEL_TOL``.  (c) ``examples/pbt_vectorized.py`` as it runs
+   (16 x 12, interval 3, compiled, dispatch and checkpoint every
+   interval), interrupted after generation 2: the resume stays compiled,
+   its generation log and donor notes bit-equal to the uninterrupted
+   run's.  (d) ``tune.run`` at the quickstart's widths with flash (8 x 4,
+   one lease slot) in a child process, SIGKILLed once 6 trial checkpoints
+   have landed, then ``tune.run(resume=True)`` in a fresh process: every
+   trial TERMINATED, each epoch reported once, each requeued trial's
+   first report at ``restore_base + 1``, the f32 kernels launched; then
+   the uninterrupted run in that process, its configs equal.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -101,6 +124,7 @@ script imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2080,8 +2104,8 @@ def _pbt_flash(tune, train, val, root) -> dict:
 
 def _pbt_pb2(tune, root) -> dict:
     """(c): PB2 on the boundary path as examples/pbt_vectorized.py
-    --scheduler pb2 runs it, at 16 x 12, interval 3 (its population
-    checkpoints are refused until ROADMAP A1 slice d and left out)."""
+    --scheduler pb2 runs it, at 16 x 12, interval 3, with its population
+    checkpoints every interval."""
     from distributed_machine_learning_tpu_torch.data import glucose_like_data
 
     train, val = glucose_like_data(num_steps=60_000, num_features=FEATURES)
@@ -2094,7 +2118,8 @@ def _pbt_pb2(tune, root) -> dict:
                    hyperparam_mutations=_pbt_mutations(tune, 1e-5),
                    quantile_fraction=0.25, seed=1)
     run = _pbt_sweep(tune, train, val, root, "pb2", space, pb2,
-                     num_samples=rows, epochs_per_dispatch=interval)
+                     num_samples=rows, epochs_per_dispatch=interval,
+                     checkpoint_every_epochs=interval)
     block = run["block"]
     if not (block["mode"] == "boundary" and block["num_observations"] > 0
             and block["num_perturbations"] > 0
@@ -2239,6 +2264,589 @@ def phase_pbt():
             "respawn": respawn["launches"]}
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+# (a) phase vectorized's ASHA headline, saved every 5 epochs, interrupted
+# on the first record of epoch 12: the newest checkpoint is epoch 10's,
+# written after the second compaction (ASHA's rungs at 5 and 10).
+RESUME_HEADLINE = dict(checkpoint_every=5, fatal_iteration=12)
+# (b) the flash group at 8 x 6 (cut from 50 x 20), saved every 2 epochs,
+# interrupted at 3.
+RESUME_FLASH = dict(trials=8, epochs=6, checkpoint_every=2,
+                    fatal_iteration=3)
+# (c) examples/pbt_vectorized.py as it runs: 16 x 12, interval 3, the
+# interval as dispatch and checkpoint cadence; interrupted on the first
+# record after generation 2.
+RESUME_PBT = dict(trials=16, epochs=12, interval=3, fatal_iteration=7)
+# (d) the quickstart's widths with flash through tune.run, 8 x 4 on one
+# lease slot (two ran 1.9x slower, PERF.md), SIGKILLed once 6 trial
+# checkpoints have landed: trial 0 done or all but done, trial 1 in flight.
+RESUME_RUN = dict(trials=8, epochs=4, slots=1, kill_after=6)
+
+
+class _Preempted(RuntimeError):
+    """The interruption planted in a sweep: its process dying."""
+
+
+def _dying(sched, fatal: int, hook: str = "on_trial_result"):
+    """``sched`` whose ``hook`` raises on the first record at ``fatal``
+    (under PBT the vectorized runner only calls ``observe_result``)."""
+    orig = getattr(sched, hook)
+
+    def hooked(trial, result):
+        if result["training_iteration"] >= fatal:
+            raise _Preempted(f"planted at training_iteration {fatal}")
+        return orig(trial, result)
+
+    setattr(sched, hook, hooked)
+    return sched
+
+
+def _experiment_state(root: str) -> dict:
+    with open(os.path.join(root, "experiment_state.json")) as f:
+        return json.load(f)
+
+
+def _result_lines(root: str, trial_id: str) -> list:
+    with open(os.path.join(root, trial_id, "result.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _vectorized_resume(tune, train, val, root, tag, space, make_sched, *,
+                       num_samples, fatal, **kwargs) -> dict:
+    """One ``run_vectorized`` spec three times in this process:
+    uninterrupted, interrupted at ``fatal`` (the scheduler from
+    ``make_sched(fatal)`` raises) and resumed; with each population save's
+    seconds and bytes, the resume's load seconds and the kernels'
+    launches in the resumed run."""
+    from distributed_machine_learning_tpu_torch.tune import (
+        checkpoint as ckpt_lib,
+    )
+    from distributed_machine_learning_tpu_torch.tune import vectorized
+
+    saves, loads, scheds = [], [], []
+    save, load = ckpt_lib.save_replacing, vectorized._load_resume_state
+
+    def timed_save(path, tree):
+        t0 = time.monotonic()
+        out = save(path, tree)
+        with open(path) as f:
+            nbytes = json.load(f)["bytes"]
+        saves.append({"s": time.monotonic() - t0, "bytes": nbytes,
+                      "rows": len(tree["rows"])})
+        return out
+
+    def timed_load(*args, **kw):
+        t0 = time.monotonic()
+        out = load(*args, **kw)
+        loads.append(time.monotonic() - t0)
+        return out
+
+    def sweep(name, fatal=None, resume=False):
+        sched = make_sched()
+        if fatal is not None:
+            sched = _dying(sched, fatal, "observe_result"
+                           if hasattr(sched, "mutations")
+                           else "on_trial_result")
+        scheds.append(sched)
+        counters = _reset_counters()
+        t0 = time.monotonic()
+        analysis = tune.run_vectorized(
+            space, train_data=train, val_data=val, metric="validation_mape",
+            mode="min", num_samples=num_samples, max_batch_trials=num_samples,
+            scheduler=sched, storage_path=root, name=name, verbose=0,
+            resume=resume, **kwargs)
+        return {"analysis": analysis, "wall_s": time.monotonic() - t0,
+                "state": _experiment_state(analysis.root), "sched": sched,
+                "launches": {c.name: c.count for c in counters}}
+
+    ckpt_lib.save_replacing = timed_save
+    vectorized._load_resume_state = timed_load
+    try:
+        ref = sweep(f"resume_{tag}_ref")
+        n_ref_saves = len(saves)
+        name = f"resume_{tag}"
+        t0 = time.monotonic()
+        try:
+            sweep(name, fatal=fatal)
+        except _Preempted:
+            crash_s = time.monotonic() - t0
+        else:
+            raise AssertionError(f"resume {tag}: the planted interruption "
+                                 f"at {fatal} did not fire")
+        ck = ckpt_lib.load_checkpoint(os.path.join(
+            root, name, vectorized.POPULATION_CHECKPOINT))
+        resumed = sweep(name, resume=True)
+    finally:
+        ckpt_lib.save_replacing = save
+        vectorized._load_resume_state = load
+    for run in (ref, resumed):
+        bad = {t.trial_id: t.status.value for t in run["analysis"].trials
+               if t.status.value != "TERMINATED"}
+        if len(run["analysis"].trials) != num_samples or bad:
+            raise AssertionError(f"resume {tag}: not all TERMINATED: {bad}")
+    return {"ref": ref, "resumed": resumed, "crash_s": crash_s,
+            "ckpt": ck,
+            "saves": saves[:n_ref_saves], "load_s": loads,
+            "resumed_saves": saves[n_ref_saves:]}
+
+
+def _same_sweep(got, want) -> dict:
+    """Records (less clocks), stop iterations, each epoch once in
+    result.jsonl, best_config, and each trial's final parameters: bit
+    for bit, with the largest relative error where they differ."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.tune.checkpoint import (
+        load_checkpoint,
+    )
+
+    def plain(record):
+        return {k: v for k, v in record.items()
+                if k not in ("timestamp", "time_total_s")}
+
+    a = sorted(got.trials, key=lambda t: t.trial_id)
+    b = sorted(want.trials, key=lambda t: t.trial_id)
+    once = all([r["training_iteration"] for r in
+                _result_lines(got.root, t.trial_id)]
+               == list(range(1, t.training_iteration + 1)) for t in a)
+    params_equal, params_err, mape_err = True, (0.0, None), 0.0
+    for x, y in zip(a, b):
+        pa = load_checkpoint(x.latest_checkpoint)["params"]
+        pb = load_checkpoint(y.latest_checkpoint)["params"]
+        params_equal &= all(torch.equal(pa[k], pb[k]) for k in pb)
+        params_err = max(params_err, _params_rel_err(pa, pb),
+                         key=lambda e: e[0])
+        want_mape = y.last_result["validation_mape"]
+        mape_err = max(mape_err, abs(x.last_result["validation_mape"]
+                                     - want_mape) / abs(want_mape))
+    return {
+        "trial_ids_equal": [t.trial_id for t in a] == [t.trial_id for t in b],
+        "stop_iterations_equal": [t.training_iteration for t in a]
+        == [t.training_iteration for t in b],
+        "each_epoch_once": once,
+        "best_config_equal": got.best_config == want.best_config,
+        "records_bit_equal": all([plain(r) for r in x.results]
+                                 == [plain(r) for r in y.results]
+                                 for x, y in zip(a, b)),
+        "params_bit_equal": params_equal,
+        "params_rel_err": params_err[0], "params_worst": params_err[1],
+        "mape_rel_err": mape_err,
+    }
+
+
+def _within_row_tol(same: dict) -> bool:
+    return (same["params_rel_err"] <= ROW_TOL["params"]
+            and same["mape_rel_err"] <= ROW_TOL["validation_mape"])
+
+
+def _population_sizes(analysis) -> dict:
+    return {r["epoch"]: r["population_size"] for t in analysis.trials
+            for r in t.results}
+
+
+def _resume_headline(tune, train, val, root) -> dict:
+    """(a): the ASHA headline at full width, checkpointed every 5 epochs,
+    interrupted at 12, resumed; against the uninterrupted run."""
+    every = RESUME_HEADLINE["checkpoint_every"]
+    run = _vectorized_resume(
+        tune, train, val, root, "a_headline", headline_space(tune),
+        lambda: tune.ASHAScheduler(**HEADLINE_ASHA),
+        num_samples=HEADLINE["num_trials"],
+        fatal=RESUME_HEADLINE["fatal_iteration"], seed=42,
+        checkpoint_every_epochs=every)
+    ref, resumed, ck = run["ref"], run["resumed"], run["ckpt"]
+    sizes = _population_sizes(ref["analysis"])
+    epoch0 = ck["epoch0"]
+    same = _same_sweep(resumed["analysis"], ref["analysis"])
+    # The interrupted run's count dies with it: its compactions are the
+    # population's size changes up to the checkpoint.
+    compactions = {
+        "ref": ref["state"]["population_compactions"],
+        "before_checkpoint": sum(sizes[e] != sizes[e - 1]
+                                 for e in range(1, epoch0 + 1)),
+        "resumed": resumed["state"]["population_compactions"]}
+    checks = {
+        "checkpoint_at_10": epoch0 == 10,
+        "checkpoint_after_second_compaction": len(ck["rows"]) == sizes[epoch0]
+        and len(set(sizes[e] for e in range(epoch0 + 1))) == 3,
+        "population_sizes_equal": _population_sizes(resumed["analysis"])
+        == sizes,
+        "row_epochs_add_up": resumed["state"]["row_epochs_computed"] == sum(
+            n for e, n in sizes.items() if e >= epoch0)
+        and ref["state"]["row_epochs_computed"] == sum(sizes.values()),
+        "compactions_add_up": compactions["before_checkpoint"]
+        + compactions["resumed"] == compactions["ref"] == 2,
+        "within_row_tol": _within_row_tol(same),
+        **{k: v for k, v in same.items() if k in (
+            "trial_ids_equal", "stop_iterations_equal", "each_epoch_once",
+            "best_config_equal")},
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"resume a: {checks}; {same}; sizes {sizes}; "
+                             f"compactions {compactions}")
+    return {"run": run, "checks": checks, "same": same,
+            "compactions": compactions, "epoch0": epoch0,
+            "row_epochs": {"ref": ref["state"]["row_epochs_computed"],
+                           "resumed": resumed["state"]["row_epochs_computed"]}}
+
+
+def _resume_flash(tune, train, val, root) -> dict:
+    """(b): the flash group, 8 x 6, checkpointed every 2 epochs,
+    interrupted at 3: each f32 kernel once per layer per population step
+    and eval block after the resume, and one post-resume step's folded
+    calls against their plain versions."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+    from distributed_machine_learning_tpu_torch.ops.losses import get_loss
+    from distributed_machine_learning_tpu_torch.tune import vectorized
+    from distributed_machine_learning_tpu_torch.tune._regression_program \
+        import make_population_epoch_fn
+
+    epochs = RESUME_FLASH["epochs"]
+    space = headline_space(tune, num_epochs=epochs, attention_type="flash")
+    run = _vectorized_resume(
+        tune, train, val, root, "b_flash", space, tune.FIFOScheduler,
+        num_samples=RESUME_FLASH["trials"],
+        fatal=RESUME_FLASH["fatal_iteration"], seed=42,
+        checkpoint_every_epochs=RESUME_FLASH["checkpoint_every"])
+    ck, resumed = run["ckpt"], run["resumed"]
+    layers_n = space["num_layers"]
+    spe = resumed["analysis"].trials[0].results[-1]["steps"] // epochs
+    left = epochs - ck["epoch0"]
+    eval_blocks = -(-len(val) // space["batch_size"])
+    want = {"flash_fwd": layers_n * left * (spe + eval_blocks),
+            "flash_bwd_dkdv": layers_n * left * spe,
+            "flash_bwd_dq": layers_n * left * spe}
+    same = _same_sweep(resumed["analysis"], run["ref"]["analysis"])
+
+    # One population step from the checkpoint the resume started from.
+    program = vectorized._GroupProgram(
+        dict(resumed["analysis"].trials[0].config), train, val,
+        torch.device("cuda", 0))
+    state = program.restore_population(ck["state"])
+    d = program.data
+    step = make_population_epoch_fn(program.model, program.tx,
+                                    get_loss(program.loss_name), d.n_train,
+                                    1, d.batch_size)
+    perms = program.permutations(state, ck["epoch0"])
+    record: dict = {}
+    counters = _reset_counters()
+    saved = fa.flash_forward, fa.flash_backward
+    fa.flash_forward, fa.flash_backward = _checking(record)
+    try:
+        float(step(state.params, state.opt_state, d.x_train, d.y_train,
+                   perms, state.stream_seeds,
+                   ck["epoch0"] * program.steps_per_epoch).sum())
+    finally:
+        fa.flash_forward, fa.flash_backward = saved
+    per_step = {c.name: c.count for c in counters}
+    tol = KERNEL_TOL["float32"]
+    checks = {
+        "checkpoint_at_2": ck["epoch0"] == 2,
+        "launches_per_step_and_eval_block": resumed["launches"] == want,
+        "step_launches": all(n == layers_n for n in per_step.values()),
+        "folded_calls_within_tol": record.get("calls") == layers_n and max(
+            record[n] for n in ("out", "dq", "dk", "dv")) <= tol,
+        "within_row_tol": _within_row_tol(same),
+        "each_epoch_once": same["each_epoch_once"],
+        "stop_iterations_equal": same["stop_iterations_equal"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"resume b: {checks}; launched "
+                             f"{resumed['launches']}, not {want}; step "
+                             f"{per_step}; folded {record}; {same}")
+    return {"run": run, "checks": checks, "same": same,
+            "launches": resumed["launches"], "want": want,
+            "step": {"launches": per_step, "folded_rel_err": record,
+                     "tol": tol}}
+
+
+def _resume_pbt(tune, root) -> dict:
+    """(c): examples/pbt_vectorized.py as it runs, compiled, interrupted
+    after generation 2: the resume stays compiled, and its generation log
+    and donor notes equal the uninterrupted run's bit for bit."""
+    from distributed_machine_learning_tpu_torch.data import glucose_like_data
+
+    train, val = glucose_like_data(num_steps=60_000, num_features=FEATURES)
+    iv, epochs = RESUME_PBT["interval"], RESUME_PBT["epochs"]
+    space = headline_space(tune, num_epochs=epochs,
+                           learning_rate=tune.loguniform(1e-5, 1e-2))
+    space.pop("compute_dtype")
+    run = _vectorized_resume(
+        tune, train, val, root, "c_pbt", space,
+        lambda: tune.PopulationBasedTraining(
+            perturbation_interval=iv,
+            hyperparam_mutations=_pbt_mutations(tune, 1e-5),
+            quantile_fraction=0.25, seed=1),
+        num_samples=RESUME_PBT["trials"],
+        fatal=RESUME_PBT["fatal_iteration"], epochs_per_dispatch=iv,
+        checkpoint_every_epochs=iv)
+    ref, resumed, ck = run["ref"], run["resumed"], run["ckpt"]
+    gen0 = ck["epoch0"] // iv
+    ref_log = [e for e in ref["sched"]._generation_log if e["gen"] >= gen0]
+    log = resumed["sched"]._generation_log
+    keys = ("gen", "fire", "scores", "row_lr", "row_wd", "valid", "src",
+            "new_lr", "new_wd", "exploited")
+    log_equal = len(log) == len(ref_log) and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+        for a, b in zip(log, ref_log) for k in keys)
+
+    def notes(analysis):
+        return [n for n in _pbt_notes(analysis) if n[1] > ck["epoch0"]]
+
+    block, ref_block = resumed["state"]["pbt"], ref["state"]["pbt"]
+    same = _same_sweep(resumed["analysis"], ref["analysis"])
+    checks = {
+        "checkpoint_after_generation_2": ck["epoch0"] == 2 * iv,
+        "stays_compiled": block["mode"] == ref_block["mode"] == "compiled"
+        and "mode_fallbacks" not in block,
+        "host_dispatches": block["host_dispatches"]
+        == (epochs - ck["epoch0"]) // iv
+        and ref_block["host_dispatches"] == epochs // iv,
+        "generation_log_bit_equal": log_equal,
+        "donor_notes_equal": notes(resumed["analysis"]) == notes(
+            ref["analysis"]) and bool(notes(ref["analysis"])),
+        "within_row_tol": _within_row_tol(same),
+        "each_epoch_once": same["each_epoch_once"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"resume c: {checks}; {block} vs {ref_block}; "
+                             f"{same}")
+    return {"run": run, "checks": checks, "same": same, "pbt": block,
+            "exploits_after_resume": block["exploits"]}
+
+
+def _resume_run_sweep(tune, root: str, name: str, resume: bool):
+    """Phase resume (d)'s spec: the quickstart's data and widths with
+    flash fixed, 8 trials x 4 epochs, FIFO, one lease slot on the card."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+
+    train, val = dummy_regression_data(num_samples=1000, seq_len=50,
+                                       num_features=10)
+    return tune.run(
+        tune.with_parameters(tune.train_regressor, train_data=train,
+                             val_data=val),
+        {"model": "transformer", "d_model": tune.choice([64, 128, 256]),
+         "num_heads": tune.choice([2, 4, 8]),
+         "num_layers": tune.choice([2, 4]), "attention_type": "flash",
+         "learning_rate": tune.loguniform(1e-5, 1e-2),
+         "weight_decay": tune.loguniform(1e-6, 1e-2),
+         "num_epochs": RESUME_RUN["epochs"], "batch_size": 32},
+        metric="validation_mape", mode="min",
+        num_samples=RESUME_RUN["trials"], seed=5,
+        devices=[torch.device("cuda", 0)] * RESUME_RUN["slots"],
+        storage_path=root, name=name, verbose=0, resume=resume)
+
+
+def _resume_run_child(root: str, resume: bool, out: str) -> None:
+    """Phase resume (d) in a process of its own: the first run (which the
+    parent kills), or the resume, then the uninterrupted run of the same
+    spec; what it saw goes to ``out`` as JSON."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch import tune
+    from distributed_machine_learning_tpu_torch.tune import _driver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    restored: dict = {}
+    restore = _driver.TrialLifecycle.restore_experiment
+
+    def spy(self, *args, **kwargs):
+        restored["counts"] = restore(self, *args, **kwargs)
+        restored["requeued"] = {t.trial_id: [t.restore_base, len(t.results)]
+                                for t in self.pending}
+        return restored["counts"]
+
+    _driver.TrialLifecycle.restore_experiment = spy
+    counters = _reset_counters()
+    t0 = time.monotonic()
+    analysis = _resume_run_sweep(tune, root, "resume_d", resume)
+    doc = {"wall_s": time.monotonic() - t0,
+           "launches": {c.name: c.count for c in counters}, **restored}
+
+    def trials(a):
+        return {t.trial_id: {"status": t.status.value, "config": t.config,
+                             "its": [r["training_iteration"]
+                                     for r in t.results],
+                             "mape": [r["validation_mape"]
+                                      for r in t.results]}
+                for t in a.trials}
+
+    doc["trials"] = trials(analysis)
+    if resume:
+        t0 = time.monotonic()
+        doc["ref"] = trials(_resume_run_sweep(tune, root, "resume_d_ref",
+                                              False))
+        doc["ref_wall_s"] = time.monotonic() - t0
+    with open(out, "w") as f:
+        json.dump(doc, f)
+
+
+def _resume_run(root: str) -> dict:
+    """(d): ``tune.run`` in a child process, SIGKILLed once
+    ``kill_after`` trial checkpoints have landed, then
+    ``tune.run(resume=True)`` in a fresh process."""
+    import glob
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, chip_smoke; chip_smoke._resume_run_child("
+            "sys.argv[1], sys.argv[2] == '1', sys.argv[3])")
+    exp = os.path.join(root, "resume_d")
+    out = os.path.join(root, "resume_d.json")
+    logs = {k: os.path.join(root, f"resume_d_{k}.log")
+            for k in ("first", "resumed")}
+
+    def tail(path):
+        with open(path, errors="replace") as f:
+            return f.read()[-3000:]
+
+    t0 = time.monotonic()
+    with open(logs["first"], "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code, root, "0", out],
+                                cwd=here, stdout=log, stderr=log)
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            landed = glob.glob(os.path.join(exp, "trial_*", "checkpoints",
+                                            "ckpt_*.json"))
+            if len(landed) >= RESUME_RUN["kill_after"]:
+                break
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"resume d: the first run ended ({proc.poll()}) or "
+                    f"stalled before {RESUME_RUN['kill_after']} "
+                    f"checkpoints:\n{tail(logs['first'])}")
+            time.sleep(0.02)
+        proc.kill()
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    first_s = time.monotonic() - t0
+    landed = sorted(os.path.relpath(p, exp) for p in glob.glob(os.path.join(
+        exp, "trial_*", "checkpoints", "ckpt_*.json")))
+    t0 = time.monotonic()
+    with open(logs["resumed"], "w") as log:
+        done = subprocess.run([sys.executable, "-c", code, root, "1", out],
+                              cwd=here, stdout=log, stderr=log, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"resume d: the resume exited "
+                             f"{done.returncode}:\n{tail(logs['resumed'])}")
+    child_s = time.monotonic() - t0
+    with open(out) as f:
+        doc = json.load(f)
+    trials, requeued = doc["trials"], doc["requeued"]
+    full = list(range(1, RESUME_RUN["epochs"] + 1))
+    on_disk = {tid: [r["training_iteration"] for r in _result_lines(exp, tid)]
+               for tid in trials}
+    # A trial restored at its full budget reports nothing more.
+    first_after = {tid: trials[tid]["its"][kept] == base + 1
+                   for tid, (base, kept) in requeued.items()
+                   if kept < len(trials[tid]["its"])}
+    mape_equal = {tid: t["mape"] == doc["ref"][tid]["mape"]
+                  for tid, t in trials.items()}
+    mape_err = max(abs(a - b) / abs(b) for tid, t in trials.items()
+                   for a, b in zip(t["mape"], doc["ref"][tid]["mape"]))
+    checks = {
+        "killed_with_a_trial_in_flight": bool(requeued),
+        "all_terminated": len(trials) == RESUME_RUN["trials"] and all(
+            t["status"] == "TERMINATED" for t in trials.values()),
+        "each_epoch_once": all(t["its"] == full == on_disk[tid]
+                               for tid, t in trials.items()),
+        "first_report_at_restore_base_plus_1": all(first_after.values()),
+        "restored_from_a_checkpoint": any(
+            requeued[tid][0] > 0 for tid in first_after),
+        "f32_kernels_launched": min(doc["launches"].values()) >= 1,
+        "configs_equal_uninterrupted": all(
+            t["config"] == doc["ref"][tid]["config"]
+            for tid, t in trials.items()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"resume d: {checks}; requeued {requeued}; "
+                             f"{doc['counts']}; {trials}")
+    return {"checks": checks, "first_run_s": first_s,
+            "checkpoints_at_kill": landed, "resumed_s": doc["wall_s"],
+            "child_s": child_s, "ref_s": doc["ref_wall_s"],
+            "counts": doc["counts"], "requeued": requeued,
+            "launches": doc["launches"],
+            "mape_bit_equal_uninterrupted": all(mape_equal.values()),
+            "mape_rel_err_uninterrupted": mape_err}
+
+
+def _saves_line(saves) -> dict:
+    if not saves:
+        return {}
+    by_rows: dict = {}
+    for s in saves:
+        by_rows.setdefault(s["rows"], []).append(s)
+    return {f"rows={k}": {"saves": len(v), "bytes": v[0]["bytes"],
+                          "ms": [round(s["s"] * 1e3, 3) for s in v]}
+            for k, v in sorted(by_rows.items(), reverse=True)}
+
+
+def _vectorized_resume_line(result: dict) -> dict:
+    run = result["run"]
+    return {"epoch0": run["ckpt"]["epoch0"],
+            "ref_s": run["ref"]["wall_s"], "interrupted_s": run["crash_s"],
+            "resumed_s": run["resumed"]["wall_s"],
+            "overhead_s": run["crash_s"] + run["resumed"]["wall_s"]
+            - run["ref"]["wall_s"],
+            "load_s": run["load_s"], "saves": _saves_line(run["saves"]),
+            "checks": result["checks"],
+            **{k: result["same"][k] for k in (
+                "records_bit_equal", "params_bit_equal", "params_rel_err",
+                "params_worst", "mape_rel_err")}}
+
+
+def phase_resume():
+    from distributed_machine_learning_tpu_torch import tune
+
+    t_start = time.monotonic()
+    train, val = headline_data()
+    card = smi_line()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        headline = _resume_headline(tune, train, val, root)
+        emit("resume", sub="a_headline", card=card,
+             rows=HEADLINE["num_trials"], epochs=HEADLINE["num_epochs"],
+             compactions=headline["compactions"],
+             row_epochs=headline["row_epochs"],
+             stop_iterations=sorted(
+                 t.training_iteration
+                 for t in headline["run"]["resumed"]["analysis"].trials),
+             **_vectorized_resume_line(headline),
+             total_s=time.monotonic() - t0)
+        t0 = time.monotonic()
+        flash = _resume_flash(tune, train, val, root)
+        emit("resume", sub="b_flash", card=card, rows=RESUME_FLASH["trials"],
+             epochs=RESUME_FLASH["epochs"],
+             cut="8 x 6, from the headline's 50 x 20",
+             launches=flash["launches"], post_resume_step=flash["step"],
+             **_vectorized_resume_line(flash),
+             total_s=time.monotonic() - t0)
+        t0 = time.monotonic()
+        pbt = _resume_pbt(tune, root)
+        emit("resume", sub="c_pbt", card=card, rows=RESUME_PBT["trials"],
+             epochs=RESUME_PBT["epochs"], pbt=pbt["pbt"],
+             **_vectorized_resume_line(pbt), total_s=time.monotonic() - t0)
+        t0 = time.monotonic()
+        run = _resume_run(root)
+        emit("resume", sub="d_tune_run", card=card,
+             trials=RESUME_RUN["trials"], epochs=RESUME_RUN["epochs"],
+             slots=RESUME_RUN["slots"], **run,
+             total_s=time.monotonic() - t0)
+    emit("resume", card=card, total_s=time.monotonic() - t_start)
+    return {"flash_group": flash["launches"], "tune_run": run["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -2260,6 +2868,7 @@ def main() -> int:
     launches_tune = phase_tune()
     flash_population = phase_vectorized()
     launches_pbt = phase_pbt()
+    launches_resume = phase_resume()
 
     sources = {
         "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
@@ -2288,6 +2897,11 @@ def main() -> int:
             # The pbt phase: the flash PBT population (16 x 12, compiled)
             # and the respawned flash trials of tune.run.
             "launches_pbt": {k: v[name] for k, v in launches_pbt.items()},
+            # The resume phase, after each resume: the flash population
+            # (8 x 6 from its epoch-2 checkpoint) and the resumed tune.run
+            # of the quickstart's widths with flash.
+            "launches_resume": {k: v[name]
+                                for k, v in launches_resume.items()},
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},

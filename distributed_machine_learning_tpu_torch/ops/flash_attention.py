@@ -14,8 +14,9 @@ the same functions.  Nothing falls back from one to the other.
 On the card every kernel picks its code by dtype.  bf16 runs on the
 tensor cores (``wgmma``).  The f32 kernels run there too, each f32
 operand split into a bf16 high and low part and each product taken as
-three bf16 products (hi hi + hi lo + lo hi), which keeps f32 precision.
-The kernels read rows with 16-byte copies, so :func:`tensor_core_operands`
+three bf16 products (hi hi + hi lo + lo hi), which keeps f32 precision;
+the f32 backward hands them V centered on its mean over the sequence
+(:func:`center_values`).  The kernels read rows with 16-byte copies, so :func:`tensor_core_operands`
 first copies any input whose layout they cannot read.
 
 Shapes follow the JAX package: q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]``
@@ -329,6 +330,25 @@ def backward_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return delta.permute(0, 2, 1).reshape(B * H, 1, S)
 
 
+def center_values(v: torch.Tensor, do: torch.Tensor, delta: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(v - c, delta - dO . c)``, c each (batch, kv head)'s mean value
+    row over the sequence: ``dS = P (dO v^T - delta)`` is the same for
+    any c.  The f32 kernels take ``dO v^T`` as split bf16 products, each
+    rounded to about 2**-16 of ``|dO| |v|``.  Trained value rows share a
+    large common part, rounded differently in every row, while dS keeps
+    only what differs from row to row; centered, the rounding scales with
+    the differences (PERF.md §6: on an H100 the f32 dQ of a trained
+    population step read 3.7e-4 of its largest entry uncentered and
+    4.8e-5 centered)."""
+    B, S, Hkv, D = v.shape
+    H = do.shape[2]
+    c = v.mean(dim=1, keepdim=True)
+    dc = (do.reshape(B, S, Hkv, H // Hkv, D) * c.unsqueeze(3)).sum(-1)
+    return v - c, delta - dc.reshape(B, S, H).permute(0, 2, 1).reshape(
+        delta.shape)
+
+
 def _recompute_reference(q, k, v, lse, do, delta, scale: float,
                          causal: bool):
     """``_bwd_recompute`` written densely, in the accumulation type:
@@ -488,7 +508,8 @@ def flash_backward(
     The dK/dV kernel runs first, then the dQ kernel, as in
     ``_flash_backward``.  On the card both read one conforming copy
     (:func:`tensor_core_operands`) of whatever input needs one, such as
-    autograd's stride-0 dO.
+    autograd's stride-0 dO; in f32 they take V and delta centered
+    (:func:`center_values`).
 
     ``q_side``: optional precomputed ``(q, do, delta)`` (delta from
     :func:`backward_delta`), as in the JAX package's ``_flash_backward``:
@@ -505,6 +526,8 @@ def flash_backward(
                     dtype=q.dtype)
     if _on_device(q) == "cuda":
         q, k, v, do = tensor_core_operands(q, k, v, do)
+        if q.dtype == torch.float32 and v.numel():
+            v, delta = center_values(v, do, delta)
     dk, dv = flash_bwd_dkdv(q, k, v, lse, do, delta, s, causal)
     dq = flash_bwd_dq(q, k, v, lse, do, delta, s, causal)
     return _unpad(dq, D), _unpad(dk, D), _unpad(dv, D)

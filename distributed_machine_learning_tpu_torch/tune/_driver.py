@@ -9,15 +9,18 @@ Ray Tune's trial runner; SURVEY.md §1 L4.)
 
 A REQUEUE decision (PBT's exploit) stops the trial at its report and
 runs it again, from the restore target and under the config the
-scheduler chose, when its thread completes.
+scheduler chose, when its thread completes.  ``restore_experiment``
+resumes an interrupted experiment from its directory
+(``tune.run(resume=True)``).
 
-Not ported yet: the write-ahead journal and experiment resume
-(``restore_experiment``, ``restore_from_journal``; ROADMAP.md A3c) and
-the per-trial time limit (A3b).
+Not ported yet: the write-ahead journal and ``restore_from_journal``
+(``resume="auto"``; ROADMAP.md A3c) and the per-trial time limit (A3b).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -140,6 +143,96 @@ class TrialLifecycle:
         self.scheduler.on_trial_add(trial)
         self.store.write_params(trial)
         return trial
+
+    def restore_experiment(self, resources=None) -> Dict[str, int]:
+        """Resume an interrupted experiment from its directory (Ray's
+        ``tune.run(resume=True)``).
+
+        Every persisted trial is rebuilt from ``params.json`` and
+        ``result.jsonl`` and its records replayed through the scheduler,
+        the searcher and stateful stop rules (nothing is persisted
+        again).  A trial the state file has as TERMINATED or ERROR stays
+        finished; any other, or one the state file lacks, was interrupted
+        and is requeued from its newest checkpoint, its records past that
+        checkpoint dropped (memory and file).  Sampling continues
+        afterwards until ``num_samples``.  Returns the counts of finished
+        and requeued trials."""
+        from distributed_machine_learning_tpu_torch.tune import (
+            checkpoint as ckpt_lib,
+        )
+        from distributed_machine_learning_tpu_torch.tune.experiment import (
+            iter_trial_records,
+        )
+
+        counts = {"finished": 0, "requeued": 0}
+        for entry, config, records, meta in iter_trial_records(
+                self.store.root):
+            kwargs = {"resources": resources} if resources is not None else {}
+            trial = Trial(trial_id=entry, config=config, **kwargs)
+            self.trials.append(trial)
+            self.by_id[entry] = trial
+            try:
+                self.next_index = max(self.next_index,
+                                      int(entry.rsplit("_", 1)[-1]) + 1)
+            except ValueError:
+                self.next_index = max(self.next_index, len(self.trials))
+            self.scheduler.on_trial_add(trial)
+
+            # State snapshots are written at every completion, so a trial
+            # the file lacks was in flight when the process died.
+            status = meta.get("status", "PENDING") if meta else "PENDING"
+            finished = status in ("TERMINATED", "ERROR")
+            ck_path, ck_it = ckpt_lib.find_latest_checkpoint(
+                self.store.checkpoint_dir(trial))
+            if not finished:
+                # The rerun reports everything after its checkpoint again;
+                # the file is written anew (a killed process may have cut
+                # its last line).
+                records = [r for r in records
+                           if int(r.get("training_iteration", 0)) <= ck_it]
+                with open(os.path.join(self.store.trial_dir(trial),
+                                       "result.jsonl"), "w") as f:
+                    for r in records:
+                        f.write(json.dumps(r) + "\n")
+
+            # Replay rebuilds observer state and decides nothing: the
+            # config snapshot undoes what a REQUEUE decision (PBT's
+            # exploit) would change.
+            config_snapshot = dict(trial.config)
+            for rec in records:
+                trial.results.append(rec)
+                trial.reports_since_restart += 1
+                self.scheduler.on_trial_result(trial, rec)
+                self.searcher.on_trial_result(
+                    entry, config_snapshot, rec, self.metric, self.mode)
+                if callable(self.stop_rules):
+                    stop_hit(self.stop_rules, trial.trial_id, rec)
+            trial.config = config_snapshot
+            trial._requeue_on_complete = False
+            trial.restore_path = None
+            trial.restore_base = 0
+            trial.reports_since_restart = len(trial.results)
+            if ck_path:
+                trial.latest_checkpoint = ck_path
+                trial.latest_checkpoint_iteration = ck_it
+
+            if finished:
+                trial.error = (meta or {}).get("error")
+                self.finish(trial, TrialStatus(status))
+                if status == "ERROR":
+                    self.scheduler.on_trial_error(trial)
+                counts["finished"] += 1
+            else:
+                # training_iteration = restore_base once requeued.
+                if ck_path:
+                    trial.restore_path = ck_path
+                    trial.restore_base = ck_it
+                self.requeue(trial)
+                counts["requeued"] += 1
+        # Searchers with suggest-side state (GridSearch's cursor) step past
+        # what the prior run proposed.
+        self.searcher.fast_forward(self.next_index)
+        return counts
 
     # -- results -----------------------------------------------------------
 

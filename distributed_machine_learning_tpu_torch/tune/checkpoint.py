@@ -18,6 +18,13 @@ the checksum catches bytes damaged or cut later.  A checkpoint's path is
 its index, ``ckpt_NNNNNN.json``.  The names never end in ``.msgpack``, so
 no JAX reader mistakes them for its own format.
 
+A checkpoint that is overwritten in place (the population checkpoint of
+``run_vectorized``) goes through :func:`save_replacing` instead: its
+tensor file is named by its checksum (``population.<sha>.tensors``), the
+index that names it is replaced last, and the tensor file of the old index
+is deleted only after that.  A kill at any point leaves an index whose
+bytes are on storage: the old checkpoint, or the new one.
+
 bf16 has no numpy dtype, so every tensor is written as its bytes
 (``tensor.view(torch.uint8)``) and read back by viewing them as its dtype:
 a round trip gives the same bits and dtypes.  Nothing here imports
@@ -127,23 +134,67 @@ def _decode(node, flat: torch.Tensor):
     raise CheckpointCorruptionError(f"unknown checkpoint node kind {kind!r}")
 
 
-def save_checkpoint(path: str, tree: Dict[str, Any]) -> str:
-    """Write ``tree`` as the checkpoint whose index is ``path`` (any
-    storage scheme): the tensor bytes first, then the index with their
-    sha256.  Returns ``path``."""
+def _serialize(tree: Dict[str, Any]) -> Tuple[bytes, Dict[str, Any]]:
+    """``tree``'s tensor bytes and its index (without a tensor name)."""
     chunks: List[bytes] = []
     index = _encode(tree, chunks, [0])
     payload = b"".join(chunks)
-    backend, p = get_storage(path)
-    backend.write_bytes(tensors_path_for(p), payload)
-    meta = {
+    return payload, {
         "format": FORMAT,
         "sha256": hashlib.sha256(payload).hexdigest(),
         "bytes": len(payload),
         "tree": index,
     }
+
+
+def save_checkpoint(path: str, tree: Dict[str, Any]) -> str:
+    """Write ``tree`` as the checkpoint whose index is ``path`` (any
+    storage scheme): the tensor bytes first, then the index with their
+    sha256.  Returns ``path``."""
+    payload, meta = _serialize(tree)
+    backend, p = get_storage(path)
+    backend.write_bytes(tensors_path_for(p), payload)
     backend.write_bytes(p, json.dumps(meta).encode())
     return path
+
+
+def save_replacing(path: str, tree: Dict[str, Any]) -> str:
+    """Overwrite the checkpoint whose index is ``path`` so that a kill at
+    any point leaves the old checkpoint or the new one whole.
+
+    The tensor bytes go to a file of their own, named by their sha256
+    (``<stem>.<sha[:16]>.tensors`` beside the index); then the index that
+    names it replaces the old index; only then are the other tensor files
+    of this stem deleted (the old index's, and any that a save cut before
+    its index left behind).  Returns ``path``."""
+    if not path.endswith(INDEX_SUFFIX):
+        raise ValueError(f"not a checkpoint index path: {path!r}")
+    payload, meta = _serialize(tree)
+    backend, p = get_storage(path)
+    directory, base = posixpath.split(p)
+    stem = base[: -len(INDEX_SUFFIX)]
+    name = f"{stem}.{meta['sha256'][:16]}{TENSORS_SUFFIX}"
+    backend.write_bytes(backend.join(directory, name), payload)
+    meta["tensors"] = name
+    backend.write_bytes(p, json.dumps(meta).encode())
+    stale = re.compile(re.escape(stem) + r"\.[0-9a-f]{16}"
+                       + re.escape(TENSORS_SUFFIX) + "$")
+    for other in backend.listdir(directory):
+        if other != name and stale.match(other):
+            backend.delete(backend.join(directory, other))
+    return path
+
+
+def _tensors_of(backend, p: str, meta: Dict[str, Any]) -> str:
+    """The tensor file the index at ``p`` names: its own ``tensors``
+    entry (a file name beside it), else the ``.tensors`` twin."""
+    name = meta.get("tensors")
+    if name is None:
+        return tensors_path_for(p)
+    if (not isinstance(name, str) or "/" in name or name.startswith(".")
+            or not name.endswith(TENSORS_SUFFIX)):
+        raise CheckpointCorruptionError(f"bad tensor file name {name!r}")
+    return backend.join(posixpath.dirname(p), name)
 
 
 def load_checkpoint(path: Optional[str],
@@ -165,7 +216,7 @@ def load_checkpoint(path: Optional[str],
     except (ValueError, KeyError, TypeError) as exc:
         raise CheckpointCorruptionError(
             f"unreadable checkpoint index {path}: {exc!r}") from exc
-    data = backend.read_bytes(tensors_path_for(p))
+    data = backend.read_bytes(_tensors_of(backend, p, meta))
     if data is None:
         raise CheckpointCorruptionError(f"{path}: its tensor file is missing")
     if verify and (len(data) != meta.get("bytes")

@@ -156,7 +156,9 @@ def iter_trial_records(root: str):
 
     ``state_meta`` is the trial's entry from experiment_state.json (dict) or
     None when the trial never made it into a state snapshot (e.g. the
-    driver died before any trial completed).
+    driver died before any trial completed).  A last record that does not
+    parse was cut by a killed process and is left out; one before it that
+    does not parse raises.
     """
     state_path = os.path.join(root, "experiment_state.json")
     state: Dict[str, Any] = {}
@@ -175,7 +177,13 @@ def iter_trial_records(root: str):
         results_path = os.path.join(tdir, "result.jsonl")
         if os.path.exists(results_path):
             with open(results_path) as f:
-                records = [json.loads(l) for l in f if l.strip()]
+                lines = [line for line in f if line.strip()]
+            for i, line in enumerate(lines):
+                try:
+                    records.append(json.loads(line))
+                except json.JSONDecodeError:
+                    if i < len(lines) - 1:
+                        raise
         yield entry, config, records, by_id.get(entry)
 
 

@@ -16,9 +16,11 @@ that are not ported yet raise ``NotImplementedError`` when set away from
 their defaults, naming the ROADMAP.md item that will lift them
 (:data:`UNPORTED_KNOB_ITEMS`): ``trial_executor="process"``,
 ``prewarm_runners``, ``progress_deadline_s``, ``progress_grace_s`` and
-``time_limit_per_trial_s`` (A3b), ``resume`` (A3c), ``input_mode`` (A6),
-``mesh_shape`` (A9), ``trace`` and ``trace_profile_trials`` (A10), a
-remote ``checkpoint_storage`` (A3f) and a ``Repeater`` (A3d).
+``time_limit_per_trial_s`` (A3b), ``resume="auto"`` (the journal, A3c),
+``input_mode`` (A6), ``mesh_shape`` (A9), ``trace`` and
+``trace_profile_trials`` (A10), a remote ``checkpoint_storage`` (A3f) and
+a ``Repeater`` (A3d).  ``resume=True`` continues an interrupted
+experiment from its directory (``_driver.py::restore_experiment``).
 ``PopulationBasedTraining`` and ``PB2`` run as stop and respawn: a
 bottom-quantile trial is requeued from a top trial's checkpoint under a
 mutated config, and ``experiment_state.json["pbt"]`` counts the
@@ -29,6 +31,7 @@ port and are not parameters.
 
 from __future__ import annotations
 
+import os
 import queue
 import time
 import uuid
@@ -89,6 +92,21 @@ UNPORTED_KNOB_ITEMS = {
 }
 
 
+def _validate_resume(storage_path: str, name: Optional[str]) -> None:
+    """The resume precondition: an explicit name whose experiment
+    directory exists, so that a typo'd name does not start (and pay for)
+    a fresh experiment while claiming to resume."""
+    if not name:
+        raise ValueError(
+            "resume=True needs the explicit experiment `name` to resume"
+        )
+    root = ExperimentStore.root_for(storage_path, name)
+    if not os.path.isdir(root):
+        raise FileNotFoundError(
+            f"resume=True but no experiment directory at {root}"
+        )
+
+
 def _refuse_unported(knobs: Dict[str, bool]) -> None:
     for knob, is_set in knobs.items():
         if is_set:
@@ -147,6 +165,10 @@ def run(
     (0 = keep all); a checkpoint a pending retry points at is never pruned.
     ``checkpoint_storage``: another root for checkpoints (a local path, or
     ``mem://...`` in tests); metrics stay under ``storage_path``.
+    ``resume=True``: continue the experiment ``name`` under
+    ``storage_path``: finished trials stay finished, their records replay
+    into the scheduler and searcher, interrupted ones run again from their
+    newest checkpoint, and sampling continues to ``num_samples``.
     """
     if mode not in ("min", "max"):
         raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
@@ -157,7 +179,7 @@ def run(
     _refuse_unported({
         "trial_executor": trial_executor == "process",
         "prewarm_runners": bool(prewarm_runners),
-        "resume": resume is not False,
+        "resume": resume == "auto",
         "mesh_shape": mesh_shape is not None,
         "input_mode": input_mode is not None,
         "trace": bool(trace),
@@ -168,6 +190,8 @@ def run(
     })
     if checkpoint_storage is not None:
         get_storage(checkpoint_storage)  # a remote scheme raises here
+    if resume:
+        _validate_resume(storage_path, name)
     space = (
         param_space
         if isinstance(param_space, SearchSpace)
@@ -213,6 +237,10 @@ def run(
     trials = lifecycle.trials
     pending = lifecycle.pending
     start_time = lifecycle.start_time
+    if resume:
+        counts = lifecycle.restore_experiment(resources=resources)
+        log(f"resumed {name}: {counts['finished']} finished trials kept, "
+            f"{counts['requeued']} interrupted trials requeued")
 
     def safe_cb(hook: str, *args):
         dispatch_safely(callbacks, hook, *args, log=log)

@@ -57,9 +57,26 @@ decide the same bit for bit.  PB2, list/quantized/callable specs and
 ``stop=`` rules need host decisions every generation and run on the
 boundary path.
 
+``checkpoint_every_epochs=N`` writes the population (parameters,
+optimizer state with each row's lr/wd, dropout-stream and shuffle seeds,
+the row mapping, the live flags, the trials' ids and PBT's pending donor
+notes) to ``<experiment>/population.json`` at the start of each chunk and
+every N epochs, after PBT and compaction, through
+``checkpoint.save_replacing``: a kill leaves the old file or the new one.
+``resume=True`` (with ``name``) reopens the experiment: finished chunks
+replay from their records as TERMINATED, trials that never started run
+as their own chunk, and the interrupted population continues from the
+file.  Records past it are dropped (memory and ``result.jsonl``), the
+searcher is fast-forwarded, ASHA's rungs and stateful stop rules are
+warmed by replay, and PBT/PB2 re-baseline each trial on its last record.
+The dropout stream is counted from the step and the shuffles from the
+epoch, so the resumed sweep gives the uninterrupted sweep's records bit
+for bit.  A compiled-PBT resume off a generation boundary runs on the
+boundary path (``pbt.mode_fallbacks``).  The JAX package's msgpack
+``population.ckpt`` is not read.
+
 Refused by name, each with the ROADMAP.md item that will lift it:
-``resume``, ``checkpoint_every_epochs`` and ``checkpoint_format="sharded"``
-(A1 slice d, A7), more than one device (A9),
+``checkpoint_format="sharded"`` (A7), more than one device (A9),
 ``progress_deadline_s``/``progress_grace_s`` (A10), a
 ``compile_cache_dir`` path and PBT's ``objective="quality_after_quant"``
 (A8, ``quant/``).
@@ -67,6 +84,8 @@ Refused by name, each with the ROADMAP.md item that will lift it:
 
 from __future__ import annotations
 
+import json
+import os
 import time
 import uuid
 import zlib
@@ -88,6 +107,7 @@ from distributed_machine_learning_tpu_torch.ops.optimizers import (
     check_supported,
     PopulationOptimizer,
     set_injected_hyperparams,
+    state_to,
     take_rows,
 )
 from distributed_machine_learning_tpu_torch.ops.rng import (
@@ -151,6 +171,9 @@ from distributed_machine_learning_tpu_torch.utils.seeding import (
 VECTOR_KEYS = ("learning_rate", "weight_decay", "seed")
 
 INPUT_MODES = ("auto", "resident", "streaming")
+
+# The population checkpoint's index under the experiment root.
+POPULATION_CHECKPOINT = "population.json"
 
 
 def _static_signature(config: Dict[str, Any]) -> Tuple:
@@ -364,6 +387,20 @@ class _GroupProgram:
             seeds=[state.seeds[i] for i in keep],
         )
 
+    def population_tree(self, state: PopulationState) -> Dict[str, Any]:
+        """The population as a checkpoint tree (tensors, ints and lists)."""
+        return {"params": state.params, "opt_state": state.opt_state,
+                "stream_seeds": state.stream_seeds,
+                "seeds": [int(s) for s in state.seeds]}
+
+    def restore_population(self, tree: Dict[str, Any]) -> PopulationState:
+        """:meth:`population_tree`'s inverse, on this program's device."""
+        return PopulationState(
+            params={k: v.to(self.device) for k, v in tree["params"].items()},
+            opt_state=state_to(tree["opt_state"], self.device),
+            stream_seeds=tree["stream_seeds"].to(self.device),
+            seeds=[int(s) for s in tree["seeds"]])
+
     def row_params(self, state: PopulationState, i: int
                    ) -> Dict[str, torch.Tensor]:
         """Row ``i``'s parameters as a state dict on the CPU."""
@@ -477,7 +514,7 @@ def _stopper_epoch_fraction(sched, num_epochs: int) -> float:
     return min(max(frac_num / num_epochs, g / num_epochs), 1.0)
 
 
-def _refuse_unported(*, devices, pbt_mode: str, resume,
+def _refuse_unported(*, devices, pbt_mode: str,
                      checkpoint_every_epochs: int, checkpoint_format: str,
                      progress_deadline_s, progress_grace_s,
                      compile_cache_dir) -> None:
@@ -491,10 +528,12 @@ def _refuse_unported(*, devices, pbt_mode: str, resume,
             f"checkpoint_format must be 'msgpack' or 'sharded', "
             f"got {checkpoint_format!r}"
         )
+    if not (isinstance(checkpoint_every_epochs, int)
+            and checkpoint_every_epochs >= 0):
+        raise ValueError(
+            f"checkpoint_every_epochs must be an int >= 0, got "
+            f"{checkpoint_every_epochs!r}")
     refused = {
-        "resume": (bool(resume), "A1 slice d"),
-        "checkpoint_every_epochs": (bool(checkpoint_every_epochs),
-                                    "A1 slice d"),
         "checkpoint_format": (checkpoint_format != "msgpack", "A7"),
         "devices": (bool(devices) and len(devices) > 1, "A9"),
         "progress_deadline_s": (progress_deadline_s is not None, "A10"),
@@ -559,10 +598,13 @@ def run_vectorized(
     list/quantized/callable specs or ``stop=`` need host decisions),
     ``"boundary"`` reads back once per interval; the ``pbt`` block of
     ``experiment_state.json`` (mode, generations, exploits, explores,
-    host_dispatches) records which path ran.  The module docstring lists
-    the knobs that are refused and the JAX runner's decisions that take no
-    effect here.
+    host_dispatches) records which path ran.  ``checkpoint_every_epochs``
+    and ``resume`` (which needs ``name``): see the module docstring, which
+    also lists the knobs that are refused and the JAX runner's decisions
+    that take no effect here.
     """
+    if resume and not name:
+        raise ValueError("resume=True requires name= of the prior run")
     if mode not in ("min", "max"):
         raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
     if input_mode not in INPUT_MODES:
@@ -580,7 +622,7 @@ def run_vectorized(
     if device is not None and devices:
         raise ValueError("pass either device or devices, not both")
     _refuse_unported(
-        devices=devices, pbt_mode=pbt_mode, resume=resume,
+        devices=devices, pbt_mode=pbt_mode,
         checkpoint_every_epochs=checkpoint_every_epochs,
         checkpoint_format=checkpoint_format,
         progress_deadline_s=progress_deadline_s,
@@ -620,8 +662,26 @@ def run_vectorized(
         pbt, pbt_mode, mode, stop)
 
     name = name or f"vexp_{time.strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:6]}"
+    trials: List[Trial] = []
+    next_index = 0
+    resume_state = None
+    unstarted: List[Trial] = []
+    if resume:
+        # The checkpoint names its population's trials, so a multi-chunk
+        # sweep resumes too: finished chunks replay from disk, the
+        # in-flight chunk restores its population, and sampling continues
+        # toward num_samples afterwards.  Raises before anything is made
+        # when there is no checkpoint.
+        resume_state, finished, live, unstarted = _load_resume_state(
+            ExperimentStore.root_for(storage_path, name), metric, mode, sched,
+            searcher, pbt, stop_rules=stop)
+        trials = sorted(finished + live + unstarted, key=lambda t: t.trial_id)
+        next_index = len(trials)
+        searcher.fast_forward(next_index)
     store = ExperimentStore(storage_path, name)
     store.set_context(metric, mode)
+    ckpt_path = (os.path.join(store.root, POPULATION_CHECKPOINT)
+                 if checkpoint_every_epochs else None)
     start_time = time.time()
 
     def log(msg: str):
@@ -639,9 +699,7 @@ def run_vectorized(
     def safe_cb(hook: str, *cb_args):
         dispatch_safely(callbacks, hook, *cb_args, log=log)
 
-    trials: List[Trial] = []
     programs: Dict[Tuple, _GroupProgram] = {}
-    next_index = 0
     exhausted = False
     row_epochs = 0  # trial-epochs actually computed (compaction shrinks this)
     exec_total_s = 0.0  # dispatch-to-sync seconds across all populations
@@ -691,19 +749,30 @@ def run_vectorized(
             cb.setup(store.root, metric, mode)
         # Chunked suggest->train loop: adaptive searchers observe all
         # results from earlier chunks before proposing the next one.
-        while next_index < num_samples and not exhausted:
-            chunk = []
-            while len(chunk) < max_batch_trials and next_index < num_samples:
-                config = searcher.suggest(next_index)
-                if config is None:
-                    exhausted = True
-                    break
-                trial = Trial(trial_id=f"trial_{next_index:05d}", config=config)
-                next_index += 1
-                trials.append(trial)
-                chunk.append(trial)
-                sched.on_trial_add(trial)
-                store.write_params(trial)
+        while ((next_index < num_samples and not exhausted)
+               or resume_state is not None or unstarted):
+            if resume_state is not None:
+                chunk = list(resume_state["batch"])
+            elif unstarted:
+                # Trials made but never started before the interruption
+                # (between their params.json and their chunk's first
+                # checkpoint): they run as a chunk of their own.
+                chunk, unstarted = list(unstarted), []
+            else:
+                chunk = []
+                while (len(chunk) < max_batch_trials
+                       and next_index < num_samples):
+                    config = searcher.suggest(next_index)
+                    if config is None:
+                        exhausted = True
+                        break
+                    trial = Trial(trial_id=f"trial_{next_index:05d}",
+                                  config=config)
+                    next_index += 1
+                    trials.append(trial)
+                    chunk.append(trial)
+                    sched.on_trial_add(trial)
+                    store.write_params(trial)
             if not chunk:
                 break
 
@@ -714,6 +783,11 @@ def run_vectorized(
                 f"chunk of {len(chunk)} trials in {len(groups)} static "
                 f"group(s) [{len(trials)}/{num_samples} suggested]"
             )
+            group_ckpt_path = ckpt_path
+            if ckpt_path and len(groups) > 1:
+                log("population checkpointing needs a single static group; "
+                    f"this chunk has {len(groups)}: checkpoints disabled")
+                group_ckpt_path = None
             for sig, members in groups.items():
                 program = programs.get(sig)
                 if program is None:
@@ -727,7 +801,10 @@ def run_vectorized(
                     pbt_compiled=pbt_compiled, pbt_spec=pbt_spec,
                     pbt_counters=pbt_counters,
                     epochs_per_dispatch=epochs_per_dispatch,
+                    checkpoint_every_epochs=checkpoint_every_epochs,
+                    ckpt_path=group_ckpt_path, resume_state=resume_state,
                 )
+                resume_state = None  # consumed by the first (only) group
                 row_epochs += pop_rows
                 exec_total_s += pop_exec_s
                 compactions += pop_compactions
@@ -744,6 +821,139 @@ def run_vectorized(
         f"{100 * utilization:.0f}% dispatch-to-sync share, vectorized)"
     )
     return analysis
+
+
+def _load_resume_state(root: str, metric: str, mode: str,
+                       sched: TrialScheduler, searcher: Searcher, pbt,
+                       stop_rules=None
+                       ) -> Tuple[Dict[str, Any], List[Trial], List[Trial],
+                                  List[Trial]]:
+    """Rehydrate an interrupted sweep: load the population checkpoint,
+    rebuild the trials from the experiment directory, and replay their
+    records through the scheduler and searcher so that their state is
+    what it was when the checkpoint was written.
+
+    The checkpoint's ``trial_ids`` name the in-flight chunk; the other
+    trials with records belong to chunks that finished and replay as
+    TERMINATED; those without records were made but never started and run
+    again.  Returns ``(resume_state, finished, live_batch, unstarted)``."""
+    ck = ckpt_lib.load_checkpoint(os.path.join(root, POPULATION_CHECKPOINT))
+    if ck is None:
+        raise ValueError(
+            f"resume=True but no population checkpoint under {root} (no "
+            f"{POPULATION_CHECKPOINT}; was the run started with "
+            f"checkpoint_every_epochs > 0?)")
+    prior = ExperimentAnalysis.from_directory(root, metric, mode)
+    by_id = {t.trial_id: t for t in prior.trials}
+    ck_ids = [str(i) for i in ck["trial_ids"]]
+    missing = [i for i in ck_ids if i not in by_id]
+    if missing:
+        raise ValueError(f"population checkpoint names trials missing from "
+                         f"{root}: {missing}")
+    batch = [by_id[i] for i in ck_ids]
+    others = [t for t in sorted(by_id.values(), key=lambda t: t.trial_id)
+              if t.trial_id not in set(ck_ids)]
+    finished = [t for t in others if t.results]
+    unstarted = [t for t in others if not t.results]
+    for trial in unstarted:
+        sched.on_trial_add(trial)
+    active = [bool(a) for a in ck["active"]]
+    if len(batch) != len(active):
+        raise ValueError(
+            f"checkpoint population size ({len(active)}) does not match its "
+            f"{len(batch)} trials under {root}")
+    lrs = ck["lrs"].numpy().astype(np.float32)
+    wds = ck["wds"].numpy().astype(np.float32)
+    epoch0 = int(ck["epoch0"])
+    now = time.time()
+
+    # Chunks that finished before the interruption: whole replay, terminal.
+    for trial in finished:
+        sched.on_trial_add(trial)
+        runtime = float(trial.results[-1].get("time_total_s", 0.0))
+        trial.started_at = now - runtime
+        trial.finished_at = now
+        trial.reports_since_restart = len(trial.results)
+        trial.status = TrialStatus.TERMINATED
+    _replay_records(finished, sched, searcher, pbt, metric, mode, stop_rules)
+    for trial in finished:
+        sched.on_trial_complete(trial)
+        searcher.on_trial_complete(trial.trial_id, trial.config,
+                                   trial.last_result, metric, mode)
+    for idx, trial in enumerate(batch):
+        # The crash may have come after the checkpoint: those epochs run
+        # again, so their records go (memory and file) or they would count
+        # twice.  The file is written anew (a killed process may have cut
+        # its last line).
+        kept = [r for r in trial.results
+                if int(r.get("training_iteration", 0)) <= epoch0]
+        trial.results = kept
+        with open(os.path.join(root, trial.trial_id, "result.jsonl"),
+                  "w") as f:
+            for r in kept:
+                f.write(json.dumps(r) + "\n")
+        # PBT may have changed lr/wd since params.json was written; a value
+        # it left alone keeps the bits params.json holds (the population
+        # carries them rounded to float32).
+        trial.config = dict(trial.config)
+        for key, value in (("learning_rate", lrs[idx]),
+                           ("weight_decay", wds[idx])):
+            if key in trial.config and np.float32(trial.config[key]) != value:
+                trial.config[key] = float(value)
+        sched.on_trial_add(trial)
+        # time_total_s goes on from the last record across the gap.
+        runtime = float(kept[-1]["time_total_s"]) if kept else 0.0
+        trial.started_at = now - runtime
+        trial.restore_base = 0
+        trial.reports_since_restart = len(kept)
+        if active[idx]:
+            trial.status = TrialStatus.RUNNING
+            trial.finished_at = None
+        else:
+            # A stopped trial's clock stays at its recorded runtime.
+            trial.status = TrialStatus.TERMINATED
+            trial.finished_at = now
+    _replay_records(batch, sched, searcher, pbt, metric, mode, stop_rules)
+    for idx, trial in enumerate(batch):
+        if not active[idx]:
+            sched.on_trial_complete(trial)
+            searcher.on_trial_complete(trial.trial_id, trial.config,
+                                       trial.last_result, metric, mode)
+    resume_state = {
+        "state": ck["state"],
+        "rows": [int(r) for r in ck["rows"]],
+        "active": active,
+        "lrs": lrs,
+        "wds": wds,
+        "epoch0": epoch0,
+        "pbt_notes": {int(r): d for r, d in ck["pbt_notes"].items()},
+        "batch": batch,
+    }
+    return resume_state, finished, batch, unstarted
+
+
+def _replay_records(trial_list, sched, searcher, pbt, metric, mode,
+                    stop_rules=None) -> None:
+    """Route stored records back through the scheduler and searcher in
+    epoch-major order, the order the live loop produced them, and warm
+    stateful stop rules (their decisions ignored).  Under PBT the
+    scheduler is skipped (the population carries its decisions) and
+    re-baselined on each trial's last record only: a full history would
+    credit every old change to the trial's final config."""
+    for e in range(max((len(t.results) for t in trial_list), default=0)):
+        for trial in trial_list:
+            if e < len(trial.results):
+                record = trial.results[e]
+                if pbt is None:
+                    sched.on_trial_result(trial, record)
+                searcher.on_trial_result(trial.trial_id, dict(trial.config),
+                                         record, metric, mode)
+                if callable(stop_rules):
+                    stop_hit(stop_rules, trial.trial_id, record)
+    if pbt is not None:
+        for trial in trial_list:
+            if trial.results:
+                pbt.observe_result(trial, trial.results[-1])
 
 
 def _resolve_pbt_mode(pbt, pbt_mode: str, mode: str, stop
@@ -943,31 +1153,40 @@ def _apply_reference_exploits(batch, rows, lrs, wds, pbt, pbt_notes,
     return pairs
 
 
+def _fall_back_to_boundary(counters, log, why: str) -> None:
+    log(f"PBT falling back to boundary mode: {why}")
+    counters["mode"] = "boundary"
+    counters["mode_fallbacks"] = counters.get("mode_fallbacks", 0) + 1
+
+
 def _pbt_dispatch(program, pbt, compiled: bool, epochs_per_dispatch,
-                  stop_rules, counters, log) -> Tuple[int, int, bool]:
+                  stop_rules, counters, log, ckpt_every: int = 0
+                  ) -> Tuple[int, int, bool]:
     """``(epochs per dispatch, generations per compiled dispatch,
     compiled)`` of a PBT population, by the JAX runner's rules: the
     compiled path dispatches whole generations (all of them under
-    ``"auto"``), the boundary path at most one interval, rounded down to
-    a divisor of ``num_epochs``.  A compiled dispatch below one interval
-    falls back to the boundary path, counted in ``mode_fallbacks``."""
+    ``"auto"``, at most ``ckpt_every`` epochs when checkpointing), the
+    boundary path at most one interval, rounded down to a divisor of
+    ``num_epochs``.  A compiled dispatch below one interval falls back to
+    the boundary path, counted in ``mode_fallbacks``."""
     iv = max(int(pbt.interval), 1)
     num_epochs = program.num_epochs
     if epochs_per_dispatch == "auto":
         dispatch = num_epochs if compiled else iv
         if stop_rules is not None:
             dispatch = 1  # stop rules act at dispatch boundaries
+        if ckpt_every:
+            # Population checkpoints land at dispatch boundaries.
+            dispatch = min(dispatch, ckpt_every)
     else:
         dispatch = max(int(epochs_per_dispatch), 1)
     chunk_gens = 0
     if compiled:
         chunk_gens = dispatch // iv
         if chunk_gens < 1:
-            log(f"PBT falling back to boundary mode: dispatch chunk "
-                f"{dispatch} < perturbation interval {iv}")
+            _fall_back_to_boundary(counters, log, f"dispatch chunk {dispatch} "
+                                   f"< perturbation interval {iv}")
             compiled = False
-            counters["mode"] = "boundary"
-            counters["mode_fallbacks"] = counters.get("mode_fallbacks", 0) + 1
         elif chunk_gens * iv != dispatch:
             log(f"epochs_per_dispatch rounded {dispatch} -> "
                 f"{chunk_gens * iv} (whole generations of {iv} epochs)")
@@ -1040,40 +1259,90 @@ def _run_population(
     pbt_spec=None,
     pbt_counters=None,
     epochs_per_dispatch="auto",
+    checkpoint_every_epochs: int = 0,
+    ckpt_path: Optional[str] = None,
+    resume_state: Optional[Dict[str, Any]] = None,
 ) -> Tuple[int, float, int]:
-    """Train one population of K same-shape trials to completion.
+    """Train one population of K same-shape trials to completion, or, with
+    ``resume_state`` (from :func:`_load_resume_state`), continue one from
+    its checkpoint.
 
     Returns ``(row_epochs, exec_seconds, compactions)``: trial-epochs
     actually computed (rows x epochs, the honest cost under compaction),
     dispatch-to-sync seconds, and how many times the population was
     compacted.  Without PBT a dispatch is one epoch; under PBT see
-    :func:`_pbt_dispatch`."""
-    k = len(batch)
-    now = time.time()
-    for t in batch:
-        t.status = TrialStatus.RUNNING
-        t.started_at = now
-        safe_cb("on_trial_start", t)
-    seeds = [int(t.config.get("seed", 0)) for t in batch]
-    lrs = np.asarray([float(t.config["learning_rate"]) for t in batch],
-                     np.float32)
-    wds = np.asarray([float(t.config.get("weight_decay", 0.0))
-                      for t in batch], np.float32)
-    state = program.init_population(seeds, lrs, wds)
-    active = [True] * k
-    # ``rows[i]`` = index into ``batch`` of the trial living at population
-    # row i.  Compaction cuts stopped rows out and shrinks this mapping.
-    rows = list(range(k))
+    :func:`_pbt_dispatch`.  With ``ckpt_path`` the population is saved
+    at the start and every ``checkpoint_every_epochs`` epochs."""
+    ckpt_every = int(checkpoint_every_epochs or 0) if ckpt_path else 0
+    epoch_start = 0
+    pbt_notes: Dict[int, str] = {}  # trial index -> donor id, for the record
+    if resume_state is not None:
+        # The population at the checkpointed row count (compaction may
+        # have cut it), filled from the file: nothing to initialize.
+        lrs = np.asarray(resume_state["lrs"], np.float32)
+        wds = np.asarray(resume_state["wds"], np.float32)
+        rows = list(resume_state["rows"])
+        active = list(resume_state["active"])
+        epoch_start = int(resume_state["epoch0"])
+        state = program.restore_population(resume_state["state"])
+        pbt_notes.update(resume_state["pbt_notes"])
+        log(f"resumed population of {len(rows)} rows at epoch "
+            f"{epoch_start}")
+    else:
+        now = time.time()
+        for t in batch:
+            t.status = TrialStatus.RUNNING
+            t.started_at = now
+            safe_cb("on_trial_start", t)
+        seeds = [int(t.config.get("seed", 0)) for t in batch]
+        lrs = np.asarray([float(t.config["learning_rate"]) for t in batch],
+                         np.float32)
+        wds = np.asarray([float(t.config.get("weight_decay", 0.0))
+                          for t in batch], np.float32)
+        state = program.init_population(seeds, lrs, wds)
+        active = [True] * len(batch)
+        # ``rows[i]`` = index into ``batch`` of the trial living at
+        # population row i.  Compaction cuts stopped rows out and shrinks
+        # this mapping.
+        rows = list(range(len(batch)))
+
+    def save_population(at_epoch: int) -> None:
+        # The trial ids tell a resume the in-flight chunk from the chunks
+        # that finished (each chunk overwrites this file).
+        ckpt_lib.save_replacing(ckpt_path, {
+            "state": program.population_tree(state),
+            "rows": [int(r) for r in rows],
+            "active": [bool(a) for a in active],
+            "lrs": torch.from_numpy(np.array(lrs, np.float32)),
+            "wds": torch.from_numpy(np.array(wds, np.float32)),
+            "epoch0": int(at_epoch),
+            "trial_ids": [t.trial_id for t in batch],
+            "pbt_notes": {str(r): d for r, d in pbt_notes.items()},
+        })
+        log(f"population checkpoint at epoch {at_epoch}")
+
+    if ckpt_every and resume_state is None:
+        # From here on the file names the chunk that is running: a crash
+        # before its first periodic save must not resume the previous one.
+        save_population(0)
+
     row_epochs, exec_total_s, compactions = 0, 0.0, 0
     num_epochs = program.num_epochs
     counters = pbt_counters if pbt_counters is not None else {}
-    pbt_notes: Dict[int, str] = {}  # trial index -> donor id, for the record
     dispatch, chunk_gens, iv = 1, 0, 1
+    realign = False
     if pbt is not None:
         iv = max(int(pbt.interval), 1)
+        if pbt_compiled and epoch_start % iv:
+            # The generation program cannot start mid-generation; the
+            # boundary path takes the same decisions (the shared step).
+            _fall_back_to_boundary(
+                counters, log, f"resume epoch {epoch_start} is not a "
+                f"multiple of the perturbation interval {iv}")
+            pbt_compiled, realign = False, True
         dispatch, chunk_gens, pbt_compiled = _pbt_dispatch(
             program, pbt, pbt_compiled, epochs_per_dispatch, stop_rules,
-            counters, log)
+            counters, log, ckpt_every)
     # The deterministic step's state: each row's lr/wd as the decision
     # step last produced them (the float32 bits the optimizer carries),
     # and the frozen objective scale.
@@ -1082,7 +1351,7 @@ def _run_population(
     obj_scale = 1.0
     if pbt is not None and pbt_spec is not None:
         mut_keys = tuple(pbt_spec["keys"])
-        row_lr, row_wd = lrs.copy(), wds.copy()
+        row_lr, row_wd = lrs[rows], wds[rows]
         obj_scale = _pbt_objective_scale(pbt, program)
         if obj_scale != 1.0:
             log(f"PBT multi-objective ranking: scores scaled by "
@@ -1100,7 +1369,7 @@ def _run_population(
             safe_cb, stop_rules, pbt_notes, pbt,
         )
 
-    epoch0 = 0
+    epoch0 = epoch_start
     while epoch0 < num_epochs:
         if (pbt_compiled and epoch0 % iv == 0
                 and num_epochs - epoch0 >= iv):
@@ -1157,9 +1426,16 @@ def _run_population(
                 row_lr, row_wd = out["new_lr"].copy(), out["new_wd"].copy()
             safe_cb("on_heartbeat")
             epoch0 += g * iv
+            if (ckpt_every and epoch0 < num_epochs
+                    and epoch0 // ckpt_every > (epoch0 - g * iv) // ckpt_every):
+                save_population(epoch0)
             continue
 
         chunk = min(dispatch, num_epochs - epoch0)
+        if realign:
+            # Off a boundary, the boundary path's first dispatch ends on the
+            # next one, so generations fire where the interrupted run's did.
+            chunk, realign = min(chunk, iv - epoch0 % iv), False
         t0 = time.time()
         tl_chunk, metrics_chunk = program.read_epochs(
             *program.run_epochs(state, epoch0, chunk))
@@ -1222,6 +1498,11 @@ def _run_population(
             compactions += 1
             log(f"compacted population -> {len(rows)} rows ({live} live) "
                 f"at epoch {epoch}")
+
+        # After PBT and compaction, so the rows on disk match the mapping.
+        if (ckpt_every and epoch0 < num_epochs
+                and epoch0 // ckpt_every > (epoch0 - chunk) // ckpt_every):
+            save_population(epoch0)
 
     now = time.time()
     for i, r in enumerate(rows):

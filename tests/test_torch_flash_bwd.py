@@ -281,6 +281,67 @@ def test_split_precision_dq_meets_the_f32_limit(name, D):
     assert _rel_err(got[3], want[3]) <= F32_KERNEL_TOL
 
 
+def _shared_value_rows(seed, B=2, S=96, H=4, Hkv=2, D=16):
+    """Inputs like a trained layer's (PERF.md §6): peaked attention
+    and value rows that share a large common part, a small cotangent."""
+    rng = np.random.default_rng(seed)
+    q = 2 * rng.normal(size=(B, S, H, D))
+    k = rng.normal(size=(B, S, Hkv, D))
+    v = (12 * rng.normal(size=(B, 1, Hkv, D))
+         + 0.25 * rng.normal(size=(B, S, Hkv, D)))
+    do = 1e-3 * rng.normal(size=(B, S, H, D))
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in (q, k, v, do))
+
+
+def _split_dq_dk(q, k, v, lse, do, delta, scale):
+    """The f32 kernels' dQ and dK (every product split, dS split again)
+    from the lse and delta they are handed."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    qf, dof = q.reshape(B, S, Hkv, g, D), do.reshape(B, S, Hkv, g, D)
+    rows = lambda t: t.reshape(B, Hkv, g, S, 1)  # noqa: E731
+    p = torch.exp(_split_einsum("bqhgd,bkhd->bhgqk", qf, k) * scale
+                  - rows(lse))
+    ds = p * (_split_einsum("bqhgd,bkhd->bhgqk", dof, v) - rows(delta)) * scale
+    return (_split_einsum("bhgqk,bkhd->bqhgd", ds, k).reshape(q.shape),
+            _split_einsum("bhgqk,bqhgd->bkhd", ds, qf))
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_centered_values_keep_the_split_dq_within_the_f32_limit(seed):
+    """On value rows with a large common part the split dP = dO v^T
+    leaves dQ outside 2e-4 of the plain backward; with the v and delta of
+    ``center_values``, which the f32 backward hands its kernels, dQ and
+    dK are well inside it, and the plain backward does not move."""
+    scale = 16 ** -0.5
+
+    def backward(q, k, v, do, center):
+        out, lse = port.flash_attention_reference(q, k, v, scale, False)
+        delta = port.backward_delta(out, do)
+        if center:
+            v, delta = port.center_values(v, do, delta)
+        return (v, lse, delta), port.flash_attention_backward_reference(
+            q, k, v, lse, do, delta, scale, False)
+
+    # The identity, in float64: centering changes no gradient.
+    inputs64 = [t.double() for t in _shared_value_rows(seed)]
+    (vc, _, _), got = backward(*inputs64, center=True)
+    _, want = backward(*inputs64, center=False)
+    assert float(vc.mean(dim=1).abs().max()) < 1e-12
+    for g, w in zip(got, want):
+        assert _rel_err(g.numpy(), w.numpy()) <= 1e-12
+    # The split scheme against the plain f32 backward, as on the card.
+    q, k, v, do = _shared_value_rows(seed)
+    (_, lse, delta), want = backward(q, k, v, do, center=False)
+    vc, delta_c = port.center_values(v, do, delta)
+    raw_dq, _ = _split_dq_dk(q, k, v, lse, do, delta, scale)
+    assert _rel_err(raw_dq.numpy(), want[0].numpy()) > F32_KERNEL_TOL
+    dq, dk = _split_dq_dk(q, k, vc, lse, do, delta_c, scale)
+    assert _rel_err(dq.numpy(), want[0].numpy()) <= F32_KERNEL_TOL / 4
+    assert _rel_err(dk.numpy(), want[1].numpy()) <= F32_KERNEL_TOL / 4
+
+
 def test_one_bf16_product_misses_the_f32_limit():
     """The emulation can fail: taking each product as one bf16 product
     (hi hi only, what a plain bf16 or tf32-like rounding of the f32

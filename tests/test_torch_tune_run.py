@@ -333,8 +333,8 @@ def test_run_without_a_card_or_devices_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("trial_executor", "process"), ("prewarm_runners", 2), ("resume", True),
-    ("resume", "auto"), ("mesh_shape", {"dp": 2}), ("input_mode", "resident"),
+    ("trial_executor", "process"), ("prewarm_runners", 2), ("resume", "auto"),
+    ("mesh_shape", {"dp": 2}), ("input_mode", "resident"),
     ("trace", True), ("trace_profile_trials", 1), ("progress_deadline_s", 5.0),
     ("progress_grace_s", 5.0), ("time_limit_per_trial_s", 10.0),
     ("checkpoint_storage", "gs://bucket/exp"),

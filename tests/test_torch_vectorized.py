@@ -491,8 +491,6 @@ def _tiny_space():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("resume", True, "A1 slice d"),
-    ("checkpoint_every_epochs", 1, "A1 slice d"),
     ("checkpoint_format", "sharded", "A7"),
     ("devices", [CPU, CPU], "A9"),
     ("progress_deadline_s", 5.0, "A10"),
@@ -509,6 +507,18 @@ def test_unported_knobs_raise_by_name(knob, value, item, tmp_path):
                             metric="validation_mape",
                             storage_path=str(tmp_path), verbose=0, **kwargs)
     assert not (tmp_path / "vexp").exists() and not list(tmp_path.iterdir())
+
+
+def test_sharded_population_checkpoints_raise_by_name(tmp_path):
+    train, val = dummy_regression_data(**DATA)
+    with pytest.raises(NotImplementedError,
+                       match=r"checkpoint_format=.*ROADMAP.md A7$"):
+        tune.run_vectorized(_tiny_space(), train_data=train, val_data=val,
+                            metric="validation_mape", device="cpu",
+                            checkpoint_every_epochs=2,
+                            checkpoint_format="sharded",
+                            storage_path=str(tmp_path), verbose=0)
+    assert not list(tmp_path.iterdir())
 
 
 def test_unported_schedulers_configs_and_a_missing_card_raise(tmp_path,
