@@ -115,6 +115,26 @@ nonzero; nothing is caught and passed over):
    trial TERMINATED, each epoch reported once, each requeued trial's
    first report at ``restore_base + 1``, the f32 kernels launched; then
    the uninterrupted run in that process, its configs equal.
+11. knobs — the training knobs.  (a) ``examples/training_knobs.py``
+   uncut (8 samples x 10 epochs, ASHA, plateau stopper, a warm-start
+   point, lion/adamw, accumulation 4, RoPE, GQA, ``TensorBoardCallback``)
+   through the port's ``tune.run`` on the card: every trial TERMINATED,
+   each trial's event run read back with its records' tags and steps,
+   ``best_model()`` reloaded and predicting.  (b) the flagship through
+   ``train_regressor`` at the train phase's cut with
+   ``accumulate_grad_batches=4``: lamb, adafactor and lion under remat
+   (``dots_saveable``), each bf16 attention call held against its plain
+   version (``_checking``); adam with remat off, ``dots_saveable``,
+   ``nothing_saveable`` and ``everything_saveable``.  Each run's flash
+   launches (the forward twice per layer per micro-step under remat), its
+   logged ``lr`` by optimizer steps, its peak memory and its optimizer
+   state's bytes beside ``param_opt_bytes``; peak memory under
+   ``nothing_saveable`` below remat off; with dropout 0.1 on one seed, the
+   parameters still between updates and moving on every 4th micro-step,
+   and one optimizer step with remat on equal to remat off within 1e-6 of
+   the largest entry; each run's micro-step host ms and device ms.  (c)
+   one f32 flagship step with remat and adafactor: the three f32 kernels
+   under remat, each call within ``KERNEL_TOL``.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -981,9 +1001,11 @@ def _plain_flash():
         q, k, v, scale, causal)
 
 
-def _flagship_step_setup(train, compute_dtype: str = "bfloat16"):
-    """The flagship model with seeded weights (the same for every compute
-    dtype: parameters are f32) and one 8-row batch."""
+def _flagship_step_setup(train, compute_dtype: str = "bfloat16",
+                         config: dict | None = None):
+    """The flagship model (``config``, TRAIN by default) with seeded
+    weights (the same for every compute dtype: parameters are f32) and
+    one 8-row batch."""
     import torch
 
     from distributed_machine_learning_tpu_torch.models import (
@@ -992,7 +1014,7 @@ def _flagship_step_setup(train, compute_dtype: str = "bfloat16"):
         init_parameters,
     )
 
-    config = dict(TRAIN, compute_dtype=compute_dtype)
+    config = dict(config or TRAIN, compute_dtype=compute_dtype)
     model = build_model(config, FEATURES)
     init_parameters(model, torch.Generator().manual_seed(0)).to("cuda")
     x = torch.from_numpy(train.x[:8]).to("cuda", compute_dtype_of(config))
@@ -2847,6 +2869,375 @@ def phase_resume():
     return {"flash_group": flash["launches"], "tune_run": run["launches"]}
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+# (a) examples/training_knobs.py, uncut: its data, space and run arguments.
+KNOBS_DATA = dict(num_samples=512, seq_len=24, num_features=8)
+KNOBS_SAMPLES, KNOBS_EPOCHS = 8, 10
+# (b) the flagship at the train phase's cut (8 rows a micro-step, 8
+# micro-steps an epoch, 2 epochs), accumulating 4 micro-steps a step.
+KNOBS_ACCUM = 4
+KNOBS_TRAIN = dict(TRAIN, accumulate_grad_batches=KNOBS_ACCUM)
+# (run name, optimizer, remat policy or False for remat off)
+KNOBS_RUNS = (("lamb", "lamb", "dots_saveable"),
+              ("adafactor", "adafactor", "dots_saveable"),
+              ("lion", "lion", "dots_saveable"),
+              ("adam_off", "adam", False),
+              ("adam_dots", "adam", "dots_saveable"),
+              ("adam_nothing", "adam", "nothing_saveable"),
+              ("adam_everything", "adam", "everything_saveable"))
+# Remat recomputes the same values: one optimizer step with remat on must
+# give remat off's parameters to this share of their largest entry.
+REMAT_PARAM_TOL = 1e-6
+
+
+def _knobs_config(optimizer: str, policy, **extra) -> dict:
+    config = dict(KNOBS_TRAIN, optimizer=optimizer, **extra)
+    if policy:
+        config.update(remat=True, remat_policy=policy)
+    return config
+
+
+def _knobs_sweep(tune, root: str) -> dict:
+    """examples/training_knobs.py through the port's ``tune.run`` on the
+    card, spelled with only the package name changed."""
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+    from distributed_machine_learning_tpu_torch.utils.tensorboard import (
+        read_events,
+    )
+
+    train, val = dummy_regression_data(**KNOBS_DATA)
+    t0 = time.monotonic()
+    analysis = tune.run(
+        tune.with_parameters(
+            tune.train_regressor, train_data=train, val_data=val
+        ),
+        {
+            "model": "transformer",
+            "d_model": tune.choice([16, 32]),
+            "num_heads": 4,
+            "num_kv_heads": tune.choice([1, 2, 4]),
+            "num_layers": 2,
+            "dim_feedforward": tune.sample_from(
+                lambda cfg: cfg["d_model"] * 2
+            ),
+            "position_encoding": "rope",
+            "optimizer": tune.choice(["adamw", "lion"]),
+            "learning_rate": tune.loguniform(1e-4, 1e-2),
+            "accumulate_grad_batches": 4,
+            "num_epochs": KNOBS_EPOCHS,
+            "batch_size": 16,
+        },
+        metric="validation_loss",
+        mode="min",
+        num_samples=KNOBS_SAMPLES,
+        points_to_evaluate=[
+            {"d_model": 32, "num_kv_heads": 4, "optimizer": "adamw",
+             "learning_rate": 3e-3}
+        ],
+        stop=tune.TrialPlateauStopper(
+            "validation_loss", std=1e-3, num_results=3, grace_period=3
+        ),
+        scheduler=tune.ASHAScheduler(
+            max_t=KNOBS_EPOCHS, grace_period=2, reduction_factor=2
+        ),
+        callbacks=[tune.TensorBoardCallback()],
+        storage_path=root,
+        name="training_knobs",
+        verbose=0,
+    )
+    wall_s = time.monotonic() - t0
+    trials = analysis.trials
+    bad = {t.trial_id: (t.status.value, (t.error or "")[-800:])
+           for t in trials if t.status.value != "TERMINATED"}
+    if len(trials) != KNOBS_SAMPLES or bad:
+        raise AssertionError(f"knobs: {len(trials)} trials, not all "
+                             f"TERMINATED: {bad}")
+    events = 0
+    for t in trials:
+        paths = sorted(os.listdir(os.path.join(analysis.root, "tensorboard",
+                                               t.trial_id)))
+        logged = [(r["step"], sorted(r["scalars"]))
+                  for name in paths
+                  for r in read_events(os.path.join(
+                      analysis.root, "tensorboard", t.trial_id, name))[1:]
+                  if r["step"] > 0]
+        want = [(r["training_iteration"],
+                 sorted(k for k, v in r.items()
+                        if isinstance(v, (int, float))
+                        and not isinstance(v, bool))) for r in t.results]
+        if logged != want:
+            raise AssertionError(f"knobs: {t.trial_id}'s event run holds "
+                                 f"{logged}, its records {want}")
+        events += len(logged)
+    import torch
+
+    model = analysis.best_model().to("cuda")
+    preds = model(torch.from_numpy(val.x[:4]).to("cuda"))
+    if tuple(preds.shape) != (4, 1) or not bool(preds.isfinite().all()):
+        raise AssertionError(f"knobs: best_model() predicts {preds}")
+    return {"wall_s": wall_s, "trials": len(trials), "events": events,
+            "stop_iterations": {t.trial_id: [t.config["optimizer"],
+                                             t.training_iteration]
+                                for t in trials},
+            "best_config": {k: analysis.best_config[k] for k in (
+                "d_model", "num_kv_heads", "optimizer", "learning_rate")},
+            "best_validation_loss": analysis.best_result["validation_loss"]}
+
+
+def _knobs_run(tune, train, val, config: dict, check: dict | None) -> dict:
+    """One flagship ``train_regressor`` run of ``config`` on the card: its
+    records, launches, peak memory and optimizer state's bytes; ``check``
+    receives :func:`_checking`'s record of every attention call."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    records, ckpts = [], []
+    trainable = tune.with_parameters(tune.train_regressor, train_data=train,
+                                     val_data=val)
+    saved = fa.flash_forward, fa.flash_backward
+    if check is not None:
+        fa.flash_forward, fa.flash_backward = _checking(check)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counters = _reset_counters()
+    try:
+        with tune.session.standalone(
+                devices=[torch.device("cuda", 0)],
+                report_fn=lambda m, c: (records.append(m), ckpts.append(c))):
+            t0 = time.monotonic()
+            trainable(config)
+            wall_s = time.monotonic() - t0
+    finally:
+        fa.flash_forward, fa.flash_backward = saved
+    torch.cuda.synchronize()
+    return {"records": records, "opt_state": ckpts[-1]["opt_state"],
+            "params": ckpts[-1]["params"], "wall_s": wall_s,
+            "launches": {c.name: c.count for c in counters},
+            "peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def _knobs_steps(train, config: dict, micro_steps: int,
+                 check: dict | None = None):
+    """``micro_steps`` single-batch epochs of ``config`` (the flagship from
+    the seeded weights of :func:`_flagship_step_setup`, its dropout drawn
+    from one seeded generator) through the port's epoch program and
+    ``make_optimizer``: the parameters after each micro-step, the host ms
+    of each, and a function that runs one more."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.models.convert import (
+        flax_leaf_axes,
+    )
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+    from distributed_machine_learning_tpu_torch.ops.losses import mse_loss
+    from distributed_machine_learning_tpu_torch.ops.optimizers import (
+        make_optimizer,
+    )
+    from distributed_machine_learning_tpu_torch.tune._regression_program import (
+        make_epoch_fn,
+    )
+
+    model, x, y = _flagship_step_setup(train, config["compute_dtype"],
+                                       config)
+    params = dict(model.named_parameters())
+    tx = make_optimizer(config["optimizer"], config["learning_rate"],
+                        accumulate_grad_batches=config.get(
+                            "accumulate_grad_batches", 1),
+                        leaf_axes=flax_leaf_axes(params))
+    opt = tx.init(params)
+    step = make_epoch_fn(model, tx, mse_loss, 8, 1, 8)
+    perm = torch.arange(8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    saved = fa.flash_forward, fa.flash_backward
+    if check is not None:
+        fa.flash_forward, fa.flash_backward = _checking(check)
+    after, host_ms = [], []
+    try:
+        for _ in range(micro_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(opt, x, y, perm, gen))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            after.append({k: p.detach().clone() for k, p in params.items()})
+    finally:
+        fa.flash_forward, fa.flash_backward = saved
+    return after, host_ms, (lambda: float(step(opt, x, y, perm, gen)))
+
+
+def _max_share(a: dict, b: dict) -> float:
+    """max |a - b| over max |b|, across every parameter."""
+    top = max(t.abs().max().item() for t in b.values())
+    return max((a[k] - b[k]).abs().max().item() for k in b) / top
+
+
+def phase_knobs():
+    import torch
+
+    from distributed_machine_learning_tpu_torch import tune
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+    from distributed_machine_learning_tpu_torch.models.flagship import (
+        param_opt_bytes,
+        tree_nbytes,
+    )
+    from distributed_machine_learning_tpu_torch.ops.schedules import (
+        get_schedule,
+    )
+    from distributed_machine_learning_tpu_torch.tune._regression_program import (
+        stage_data,
+    )
+
+    t_start = time.monotonic()
+    card = smi_line()
+    # (a) the example's sweep.
+    with tempfile.TemporaryDirectory() as root:
+        sweep = _knobs_sweep(tune, root)
+    emit("knobs", sub="a_training_knobs", card=card,
+         samples=KNOBS_SAMPLES, epochs=KNOBS_EPOCHS, cut=None, **sweep)
+
+    # (b) the flagship with each optimizer and remat setting.
+    train, val = dummy_regression_data(num_samples=TRAIN_ROWS,
+                                       seq_len=TRAIN["max_seq_length"],
+                                       num_features=FEATURES)
+    layers_n = KNOBS_TRAIN["num_layers"]
+    epochs = KNOBS_TRAIN["num_epochs"]
+    data = stage_data(train, val, KNOBS_TRAIN["batch_size"], torch.bfloat16,
+                      torch.device("cpu"))
+    micro = data.num_batches * epochs
+    evals = layers_n * data.n_val_blocks * epochs
+    opt_steps = epochs * (data.num_batches // KNOBS_ACCUM)
+    shape = get_schedule(KNOBS_TRAIN["lr_schedule"], learning_rate=1.0,
+                         warmup_steps=0, total_steps=opt_steps)
+    want_lr = [KNOBS_TRAIN["learning_rate"]
+               * shape(min((e + 1) * data.num_batches // KNOBS_ACCUM,
+                           opt_steps)) for e in range(epochs)]
+    params_bytes = param_opt_bytes(KNOBS_TRAIN, FEATURES, "sgd")
+    runs, checks, total = {}, {}, {}
+    for name, optimizer, policy in KNOBS_RUNS:
+        check = (checks.setdefault(name, {}) if not name.startswith("adam")
+                 else None)
+        run = _knobs_run(tune, train, val, _knobs_config(optimizer, policy),
+                         check)
+        launches = run["launches"]
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        fwd_train = launches["flash_fwd"] - evals
+        want_fwd = (2 if policy else 1) * layers_n * micro
+        if (fwd_train != want_fwd
+                or launches["flash_bwd_dkdv"] != layers_n * micro
+                or launches["flash_bwd_dq"] != layers_n * micro):
+            raise AssertionError(
+                f"knobs: {name} launched {launches}; want flash_fwd "
+                f"{want_fwd} + {evals} eval and {layers_n * micro} of each "
+                f"backward")
+        records = run["records"]
+        lrs = [r["lr"] for r in records]
+        if lrs != want_lr or [r["steps"] for r in records] != [
+                data.num_batches * (e + 1) for e in range(epochs)]:
+            raise AssertionError(f"knobs: {name} logged lr {lrs} (want "
+                                 f"{want_lr}, by optimizer steps)")
+        state = tree_nbytes(run["opt_state"])
+        priced = param_opt_bytes(KNOBS_TRAIN, FEATURES, optimizer) \
+            - params_bytes
+        # MultiSteps keeps a running mean of the gradients besides the
+        # optimizer's own state.
+        if abs(state - (priced + params_bytes)) > 0.01 * state:
+            raise AssertionError(f"knobs: {name}'s optimizer state holds "
+                                 f"{state} bytes, priced {priced} + "
+                                 f"{params_bytes} accumulated")
+        if not all(np.isfinite(r["train_loss"]) for r in records):
+            raise AssertionError(f"knobs: {name} non-finite loss {records}")
+        runs[name] = {
+            "optimizer": optimizer, "remat_policy": policy or None,
+            # The checked runs' peaks hold the plain versions' buffers too.
+            "checked": check is not None,
+            "launches": launches, "peak_bytes": run["peak_bytes"],
+            "opt_state_bytes": state, "param_opt_bytes_state": priced,
+            "accumulator_bytes": params_bytes, "lr": lrs,
+            "train_loss": [r["train_loss"] for r in records],
+            "epoch_time_s": [r["epoch_time_s"] for r in records],
+            "wall_s": run["wall_s"]}
+    tol16 = KERNEL_TOL["bfloat16"]
+    for name, record in checks.items():
+        calls = record.get("calls", 0)
+        if calls != layers_n * micro or not max(
+                record[n] for n in ("out", "dq", "dk", "dv")) <= tol16:
+            raise AssertionError(f"knobs: a bf16 attention call of {name} "
+                                 f"off its plain version: {record} (tol "
+                                 f"{tol16}, {layers_n * micro} backward "
+                                 f"calls)")
+    peak = {n: runs[n]["peak_bytes"] for n in runs if n.startswith("adam")}
+    if not peak["adam_nothing"] < peak["adam_off"]:
+        raise AssertionError(f"knobs: peak memory under nothing_saveable "
+                             f"is not below remat off: {peak}")
+
+    # One optimizer step (4 micro-steps), dropout 0.1 on one seed: remat
+    # on against off, the parameters still between updates, and each
+    # micro-step's host and device ms.
+    off, _, _ = _knobs_steps(train, _knobs_config("adam", False,
+                                                  dropout=0.1),
+                             2 * KNOBS_ACCUM)
+    moved = [_max_share(off[i], off[i - 1]) > 0
+             for i in range(1, len(off))]
+    if moved != [i % KNOBS_ACCUM == KNOBS_ACCUM - 1
+                 for i in range(1, len(off))]:
+        raise AssertionError(f"knobs: parameters moved at micro-steps "
+                             f"{moved}, not every {KNOBS_ACCUM}th")
+    remat_err = {}
+    for policy in ("dots_saveable", "nothing_saveable",
+                   "everything_saveable"):
+        on, _, _ = _knobs_steps(train, _knobs_config("adam", policy,
+                                                     dropout=0.1),
+                                KNOBS_ACCUM)
+        remat_err[policy] = _max_share(on[-1], off[KNOBS_ACCUM - 1])
+    if not max(remat_err.values()) <= REMAT_PARAM_TOL:
+        raise AssertionError(f"knobs: remat-on parameters after one step "
+                             f"off remat off's: {remat_err}")
+    timing = {}
+    for name, optimizer, policy in KNOBS_RUNS:
+        _, host_ms, one = _knobs_steps(
+            train, _knobs_config(optimizer, policy), KNOBS_ACCUM)
+        timing[name] = {"step_host_ms": host_ms,
+                        "micro_step_device_ms": device_ms(one, KNOBS_ACCUM)}
+    emit("knobs", sub="b_flagship", card=card,
+         config={k: KNOBS_TRAIN[k] for k in (
+             "d_model", "num_heads", "num_layers", "dim_feedforward",
+             "max_seq_length", "compute_dtype", "batch_size",
+             "accumulate_grad_batches")},
+         micro_steps=micro, optimizer_steps=opt_steps, eval_launches=evals,
+         runs=runs, checks=checks, remat_param_rel_err=remat_err,
+         timing=timing)
+
+    # (c) one f32 step with remat and adafactor: the three f32 kernels
+    # under remat against their plain versions.
+    check32 = {}
+    counters = _reset_counters()
+    config32 = _knobs_config("adafactor", "dots_saveable",
+                             compute_dtype="float32",
+                             accumulate_grad_batches=1)
+    _knobs_steps(train, config32, 1, check=check32)
+    launches32 = {c.name: c.count for c in counters}
+    tol32 = KERNEL_TOL["float32"]
+    if (launches32 != {"flash_fwd": 2 * layers_n,
+                       "flash_bwd_dkdv": layers_n, "flash_bwd_dq": layers_n}
+            or check32.get("calls") != layers_n
+            or not max(check32[n] for n in ("out", "dq", "dk", "dv"))
+            <= tol32):
+        raise AssertionError(f"knobs: the f32 remat step launched "
+                             f"{launches32}, checks {check32} (tol {tol32})")
+    emit("knobs", sub="c_f32_step", card=card, launches=launches32,
+         checks=check32)
+    emit("knobs", card=card, total_s=time.monotonic() - t_start)
+    return {"flagship_bf16": total, "f32_step": launches32}
+
+
 def main() -> int:
     import torch
 
@@ -2869,6 +3260,7 @@ def main() -> int:
     flash_population = phase_vectorized()
     launches_pbt = phase_pbt()
     launches_resume = phase_resume()
+    launches_knobs = phase_knobs()
 
     sources = {
         "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
@@ -2902,6 +3294,12 @@ def main() -> int:
             # of the quickstart's widths with flash.
             "launches_resume": {k: v[name]
                                 for k, v in launches_resume.items()},
+            # The knobs phase: the flagship's seven bf16 runs (lamb,
+            # adafactor, lion and adam under remat settings; the forward
+            # twice per layer per micro-step under remat), and the one f32
+            # remat step with adafactor.
+            "launches_knobs": {k: v[name]
+                               for k, v in launches_knobs.items()},
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},

@@ -68,6 +68,7 @@ def _build_transformer(config: Dict[str, Any], input_features: int):
         num_kv_heads=config.get("num_kv_heads"),
         block_size=config.get("block_size"),
         remat=config.get("remat", False),
+        remat_policy=config.get("remat_policy"),
     )
 
 

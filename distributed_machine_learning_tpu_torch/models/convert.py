@@ -13,6 +13,9 @@ a flax path ``layer_0/attention/query/kernel`` is the torch key
   ``pointwise``) -> weight ``(out, in/groups, window)``;
 * ``LayerNorm`` ``scale`` -> ``weight``; biases keep their shape.
 
+:func:`flax_axes` names the permutation back to the flax layout per leaf
+(adafactor factors each leaf in that order, ``ops/optimizers.py``).
+
 With ``shared_weights`` the one scanned block lives under
 ``shared_layer/layer``, which is also the torch path.
 
@@ -26,7 +29,7 @@ and one stacked dict.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +40,27 @@ _CONV_MODULES = ("depthwise", "pointwise")
 def _kernel_in_dims(module: str, ndim: int) -> int:
     """How many leading axes of a flax dense kernel are input axes."""
     return 2 if (module == "out" and ndim == 3) else 1
+
+
+def flax_axes(key: str, ndim: int) -> Optional[Tuple[int, ...]]:
+    """The permutation of a port leaf's axes that gives its flax layout
+    (``weight.permute(*axes)`` is the flax kernel), or None for a leaf
+    whose layout is the same in both (biases, layer-norm scales)."""
+    path = key.split(".")
+    if path[-1] != "weight" or ndim < 2:
+        return None
+    if path[-2] in _CONV_MODULES:
+        return (2, 1, 0)
+    n_out = ndim - _kernel_in_dims(path[-2], ndim)
+    return tuple(range(n_out, ndim)) + tuple(range(n_out))
+
+
+def flax_leaf_axes(params: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, Tuple[int, ...]]:
+    """:func:`flax_axes` of every parameter that has one (the
+    ``leaf_axes`` of ``ops.optimizers.make_optimizer``)."""
+    axes = {k: flax_axes(k, p.dim()) for k, p in params.items()}
+    return {k: a for k, a in axes.items() if a is not None}
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -79,18 +103,12 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for key, tensor in state_dict.items():
         path = key.split(".")
-        module, name = path[-2], path[-1]
+        name = path[-1]
         arr = tensor.detach().to("cpu", torch.float32).numpy()
         if name == "weight" and arr.ndim == 1:
             name = "scale"
         elif name == "weight":
-            if module in _CONV_MODULES:
-                arr = arr.transpose(2, 1, 0)
-            else:
-                n_out = arr.ndim - _kernel_in_dims(module, arr.ndim)
-                arr = arr.transpose(
-                    list(range(n_out, arr.ndim)) + list(range(n_out))
-                )
+            arr = arr.transpose(flax_axes(key, arr.ndim))
             name = "kernel"
         node = tree
         for part in path[:-1]:

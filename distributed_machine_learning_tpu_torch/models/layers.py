@@ -14,6 +14,11 @@ passed to ``forward(x, rng)``: a ``torch.Generator`` (one trial), or a
 per-row stream (``ops/rng.py``: a population under ``torch.func.vmap``);
 nothing reads torch's global RNG in training.  Evaluation draws nothing.
 
+Rematerialization (:func:`remat_call`) runs a block under a non-reentrant
+``torch.utils.checkpoint``, with the ``jax.checkpoint_policies`` names
+mapped onto selective-checkpoint policies (:func:`resolve_remat_policy`),
+and replays the block's dropout generator in the recompute.
+
 Sequence parallelism (``seq_axis``, ring/Ulysses) and the mixture-of-
 experts feed-forward are not ported yet (ROADMAP.md queue A); asking for
 either raises.  The TPU-only softmax->flash auto-route is deliberately
@@ -22,12 +27,18 @@ not carried over: "flash" runs only where the config names it.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from distributed_machine_learning_tpu_torch.ops.attention import (
     blockwise_attention,
@@ -50,6 +61,89 @@ ATTENTION_TYPES = (
     "blockwise",
     "flash",
 )
+
+
+_aten = torch.ops.aten
+# The products a "dots" policy keeps: what a dense layer, an einsum or a
+# matmul becomes below autograd.  Without batch dimensions: mm and addmm.
+_DOTS = frozenset({_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                   _aten.baddbmm.default})
+_DOTS_NO_BATCH = frozenset({_aten.mm.default, _aten.addmm.default})
+
+
+def _saving(ops: Optional[frozenset]) -> Callable:
+    """A selective-checkpoint policy that saves the outputs of ``ops``
+    (every op when None) and recomputes the rest."""
+
+    def policy(ctx, op, *args, **kwargs):
+        if ops is None or op in ops:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+# jax.checkpoint_policies names -> torch policies; None recomputes all.
+REMAT_POLICIES = {
+    "nothing_saveable": None,
+    "everything_saveable": _saving(None),
+    "dots_saveable": _saving(_DOTS),
+    "checkpoint_dots": _saving(_DOTS),
+    "dots_with_no_batch_dims_saveable": _saving(_DOTS_NO_BATCH),
+}
+
+
+def resolve_remat_policy(name) -> Optional[Callable]:
+    """The selective-checkpoint policy of a ``jax.checkpoint_policies``
+    name: None/""/"none" (no policy: the whole block is recomputed) or
+    one of :data:`REMAT_POLICIES`."""
+    if name is None or name in ("", "none", False):
+        return None
+    if name not in REMAT_POLICIES:
+        raise ValueError(
+            f"Unknown remat policy {name!r}; expected one of "
+            f"{sorted(REMAT_POLICIES)}"
+        )
+    return REMAT_POLICIES[name]
+
+
+def remat_call(block: Callable, x: torch.Tensor, rng, policy=None
+               ) -> torch.Tensor:
+    """``block(x, rng)`` under a non-reentrant ``torch.utils.checkpoint``:
+    its activations are recomputed in the backward, but for what
+    ``policy`` (from :func:`resolve_remat_policy`) saves.
+
+    ``torch.utils.checkpoint`` replays only the default generators'
+    state, and the masks here come from the explicit ``rng``; a plain
+    checkpoint would draw new masks in the recompute (wrong gradients)
+    and advance ``rng`` twice.  So the generator's state is taken before
+    the block, set back for the recompute, and restored after it."""
+    if rng is not None and not isinstance(rng, torch.Generator):
+        raise NotImplementedError(
+            "remat draws its masks from a torch.Generator; a population's "
+            "row streams (torch.func) are not rematerialized"
+        )
+    before = None if rng is None else rng.get_state()
+    calls = [0]
+
+    def run(h):
+        calls[0] += 1
+        if before is None or calls[0] == 1:
+            return block(h, rng)
+        now = rng.get_state()
+        rng.set_state(before)
+        try:
+            return block(h, rng)
+        finally:
+            rng.set_state(now)
+
+    kwargs = {}
+    if policy is not None:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    # The default generators draw nothing here: no need to stash them.
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                      **kwargs)
 
 
 def _compute_dtype(dtype: Optional[torch.dtype], *tensors) -> torch.dtype:

@@ -10,7 +10,10 @@ Port of ``distributed_machine_learning_tpu/models/transformer.py``:
 
 The input width is an explicit ``input_features`` (flax infers it from the
 first batch; ``models.build_model`` reads it off the weights).  ``remat``
-is a training knob and changes nothing in evaluation.
+runs each encoder block (or each application of the shared one) under
+``layers.remat_call`` in training with gradients on, as flax's
+``nn.remat`` does, with ``remat_policy`` naming what a block keeps; it
+changes nothing in evaluation.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from distributed_machine_learning_tpu_torch.models.layers import (
     EncoderLayer,
     PositionalEncoding,
     Rng,
+    remat_call,
+    resolve_remat_policy,
 )
 
 
@@ -83,6 +88,7 @@ class TransformerRegressor(nn.Module):
         num_kv_heads: Optional[int] = None,
         block_size: Optional[int] = None,
         remat: bool = False,
+        remat_policy: Optional[str] = None,
     ):
         super().__init__()
         if position_encoding not in ("sincos", "rope", "none"):
@@ -109,6 +115,9 @@ class TransformerRegressor(nn.Module):
         )
         self.num_layers = num_layers
         self.shared_weights = shared_weights
+        self.remat = bool(remat)
+        self.remat_policy = (resolve_remat_policy(remat_policy)
+                             if self.remat and remat_policy else None)
         self.input_projection = Dense(input_features, d_model, dtype)
         if position_encoding == "sincos":
             self.position = PositionalEncoding(
@@ -131,10 +140,12 @@ class TransformerRegressor(nn.Module):
 
         ``rng`` draws the dropout masks in training mode."""
         x = self.position(self.input_projection(x), rng)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.num_layers):
             layer = (self.shared_layer.layer if self.shared_weights
                      else getattr(self, f"layer_{i}"))
-            x = layer(x, rng)
+            x = (remat_call(layer, x, rng, self.remat_policy) if remat
+                 else layer(x, rng))
         return self.head(x[:, -1, :])
 
 

@@ -24,6 +24,12 @@ with ``H % Hkv == 0`` (grouped-query attention; kv is never repeated),
 O ``[B, S, H, D]`` in q's dtype, lse ``[B*H, 1, S]`` in f32; dK and dV come
 back at ``Hkv`` heads.  :func:`flash_attention` is the autograd function:
 its forward saves O and lse, its backward runs :func:`flash_backward`.
+
+Under a non-reentrant ``torch.utils.checkpoint`` (remat,
+``models/layers.py::remat_call``) the forward runs again inside the
+backward to give back what it saved, and launches the kernel again (a
+ctypes launch is no operator a selective policy can keep), so each
+launch counter counts what the card ran: two forwards per remat block.
 """
 
 from __future__ import annotations

@@ -21,14 +21,14 @@ trial runs outside a sweep under ``tune.session.standalone()``.
 Ported so far: ``tune.run`` with the thread executor, the search space,
 ``RandomSearch``/``GridSearch``/``BayesOptSearch`` and warm-start points,
 the FIFO, ASHA, PBT and PB2 schedulers, the stoppers, the experiment store and
-analysis, the logger/JSONL/progress callbacks, pickle-free checkpoints,
-the session and ``train_regressor``; and ``tune.run_vectorized``, which
+analysis, the logger/JSONL/progress/TensorBoard/profiler callbacks,
+pickle-free checkpoints, the session and ``train_regressor`` with every
+optimizer, gradient accumulation and remat; and ``tune.run_vectorized``, which
 trains a population of trials as one batched program (the bench
 headline's runner, with PBT and PB2 as a row gather of the population;
 ``device="cpu"`` without a card).  The rest (TPE,
-HyperBand, the median rule, ``Repeater``, the process executor,
-resume, TensorBoard and profiler callbacks, remote storage, the sharded
-runners) is in ROADMAP.md queue A.
+HyperBand, the median rule, ``Repeater``, the process executor, the
+journal, remote storage, the sharded runners) is in ROADMAP.md queue A.
 """
 
 from distributed_machine_learning_tpu_torch.tune import session
@@ -36,7 +36,9 @@ from distributed_machine_learning_tpu_torch.tune.callbacks import (
     Callback,
     JsonlCallback,
     LoggerCallback,
+    ProfilerCallback,
     ProgressReporter,
+    TensorBoardCallback,
 )
 from distributed_machine_learning_tpu_torch.tune.experiment import (
     ExperimentAnalysis,
@@ -142,6 +144,8 @@ __all__ = [
     "LoggerCallback",
     "JsonlCallback",
     "ProgressReporter",
+    "TensorBoardCallback",
+    "ProfilerCallback",
     "Resources",
     "Trial",
     "TrialStatus",

@@ -38,7 +38,7 @@ read back until the caller reads the stacked outputs.  There is no
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -46,6 +46,8 @@ import torch
 from distributed_machine_learning_tpu_torch.ops.losses import huber
 from distributed_machine_learning_tpu_torch.ops.optimizers import (
     InjectedOptimizer,
+    MultiSteps,
+    Optimizer,
     PopulationOptimizer,
     apply_updates,
     set_injected_hyperparams,
@@ -69,7 +71,7 @@ def per_example_losses(preds: torch.Tensor, targets: torch.Tensor):
 
 def make_epoch_fn(
     model: torch.nn.Module,
-    tx: InjectedOptimizer,
+    tx: Union[InjectedOptimizer, Optimizer, MultiSteps],
     loss_fn: Callable,
     n_train: int,
     num_batches: int,
@@ -80,7 +82,9 @@ def make_epoch_fn(
     ``epoch(opt_state, x_all, y_all, perm, generator) -> mean_loss`` (a 0-d
     tensor on the device, not yet read back).  ``perm`` is a permutation of
     ``n_train`` rows; its first ``num_batches * batch_size`` entries are the
-    epoch's batches in order.
+    epoch's batches in order.  ``tx`` is any of the port's optimizers; a
+    ``MultiSteps`` micro-step returns no update and leaves the parameters
+    as they are.
     """
     params = dict(model.named_parameters())
 

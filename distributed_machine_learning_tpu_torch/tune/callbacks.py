@@ -7,8 +7,11 @@ structured logging, JSONL event stream, and the live progress table.
 
 Port of ``distributed_machine_learning_tpu/tune/callbacks.py``:
 ``Callback``, ``LoggerCallback``, ``JsonlCallback``, ``ProgressReporter``,
-``with_default_reporter`` and ``dispatch_safely``.  The TensorBoard and
-profiler callbacks are not ported yet (ROADMAP.md A3e).
+``TensorBoardCallback`` (over the port's own ``utils/tensorboard.py``),
+``ProfilerCallback`` (a ``torch.profiler`` capture where the JAX package
+takes a ``jax.profiler`` trace), ``with_default_reporter``,
+``dispatch_safely`` and :func:`experiment_counters`, the scalars both
+runners hand to ``on_experiment_counters``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,29 @@ def with_default_reporter(callbacks, verbose: int):
     ):
         callbacks.append(ProgressReporter())
     return callbacks
+
+
+# The experiment state's counter blocks and their scalar prefixes, in the
+# JAX runners' order.  The port keeps the pbt and host_input families; the
+# others stay empty until their layers are ported.
+COUNTER_FAMILIES = (
+    ("liveness", "liveness"), ("injected_faults", "faults"),
+    ("checkpoint", "checkpoint"), ("compile", "compile"),
+    ("host_input", "host_input"), ("pbt", "pbt"), ("obs", "obs"),
+    ("journal", "journal"),
+)
+
+
+def experiment_counters(extra: Dict[str, Any]) -> Dict[str, float]:
+    """``{"<family>/<counter>": value}`` over the numeric fields of each
+    counter block of an experiment state's ``extra`` (strings and flags,
+    such as ``pbt.mode``, are left out)."""
+    return {
+        f"{prefix}/{key}": value
+        for block, prefix in COUNTER_FAMILIES
+        for key, value in (extra.get(block) or {}).items()
+        if isinstance(value, (int, float)) and not isinstance(value, bool)
+    }
 
 
 def dispatch_safely(callbacks, hook: str, *args, log=lambda msg: None):
@@ -79,6 +105,13 @@ class Callback:
         pass
 
     def on_trial_error(self, trial: Trial, error: str):
+        pass
+
+    def on_experiment_counters(self, counters: Dict[str, int]):
+        """Experiment-level counters at teardown, prefixed by family
+        (``pbt/exploits``, ``host_input/mode_fallbacks``, ...).  Fires
+        just before ``on_experiment_end``, and only when any counter
+        family is active (:func:`experiment_counters`)."""
         pass
 
     def on_experiment_end(self, trials: List[Trial], wall_clock_s: float):
@@ -164,6 +197,136 @@ class JsonlCallback(Callback):
         self._log.write("experiment_end", {"num_trials": len(trials),
                                            "wall_clock_s": wall_clock_s})
         self._log.close()
+
+
+class TensorBoardCallback(Callback):
+    """Per-trial TensorBoard scalar logging (Ray Tune's default TB surface).
+
+    One run directory per trial under ``<root>/tensorboard/<trial_id>/``;
+    every numeric field of every ``tune.report`` lands as a scalar at
+    ``step=training_iteration``, and the trial's numeric hyperparameters
+    once as ``config/<key>`` scalars at step 0.  A trial's writer closes
+    when it completes or errors (one open file per live trial); a retried
+    trial gets a fresh event file in the same run directory, which
+    TensorBoard merges.  The experiment's counters go to the
+    ``_experiment`` run.  No tensorflow/tensorboardX is needed: the
+    event-file format is hand-encoded (``utils/tensorboard.py``)."""
+
+    def __init__(self, logdir: Optional[str] = None):
+        self._logdir = logdir
+        self._writers: Dict[str, Any] = {}
+
+    def setup(self, experiment_root: str, metric: str, mode: str):
+        self._root = self._logdir or os.path.join(experiment_root,
+                                                  "tensorboard")
+
+    @staticmethod
+    def _numeric(items) -> List:
+        return [(key, float(val)) for key, val in items
+                if not isinstance(val, bool) and isinstance(val, (int, float))]
+
+    def _writer(self, trial: Trial):
+        w = self._writers.get(trial.trial_id)
+        if w is None:
+            from distributed_machine_learning_tpu_torch.utils.tensorboard \
+                import SummaryWriter
+
+            w = SummaryWriter(os.path.join(self._root, trial.trial_id))
+            self._writers[trial.trial_id] = w
+            for key, val in self._numeric((trial.config or {}).items()):
+                w.add_scalar(f"config/{key}", val, step=0)
+        return w
+
+    def on_trial_result(self, trial: Trial, result: Dict[str, Any]):
+        step = int(result.get("training_iteration", len(trial.results)) or 0)
+        scalars = self._numeric(result.items())
+        if scalars:
+            self._writer(trial).add_scalars(scalars, step=step)
+
+    def _close(self, trial_id: str):
+        w = self._writers.pop(trial_id, None)
+        if w is not None:
+            w.close()
+
+    def on_trial_complete(self, trial: Trial):
+        self._close(trial.trial_id)
+
+    def on_trial_error(self, trial: Trial, error: str):
+        self._close(trial.trial_id)
+
+    def on_experiment_counters(self, counters: Dict[str, int]):
+        from distributed_machine_learning_tpu_torch.utils.tensorboard import (
+            SummaryWriter,
+        )
+
+        w = SummaryWriter(os.path.join(self._root, "_experiment"))
+        try:
+            w.add_scalars(self._numeric(sorted(counters.items())), step=0)
+        finally:
+            w.close()
+
+    def on_experiment_end(self, trials: List[Trial], wall_clock_s: float):
+        for w in self._writers.values():
+            w.close()
+        self._writers.clear()
+
+
+class ProfilerCallback(Callback):
+    """A ``torch.profiler`` capture of the experiment (host ops, and the
+    card's kernels when one is present) into ``<root>/profile``, as a
+    ``*.pt.trace.json`` that TensorBoard's profiler plugin and
+    chrome://tracing read.  Trials share the process, so this profiles the
+    whole sweep; ``duration_s`` bounds the capture by wall clock (checked
+    on every result and heartbeat) to keep traces small."""
+
+    def __init__(self, logdir: Optional[str] = None,
+                 duration_s: Optional[float] = None):
+        self._logdir = logdir
+        self._duration_s = duration_s
+        self._started_at: Optional[float] = None
+        self._prof = None
+
+    def setup(self, experiment_root: str, metric: str, mode: str):
+        import torch
+        from torch.profiler import (
+            ProfilerActivity,
+            profile,
+            tensorboard_trace_handler,
+        )
+
+        self._dir = self._logdir or os.path.join(experiment_root, "profile")
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities,
+                             on_trace_ready=tensorboard_trace_handler(
+                                 self._dir))
+        self._prof.start()
+        self._started_at = time.time()
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def _maybe_stop(self):
+        if self.active and self._duration_s is not None and (
+            time.time() - self._started_at > self._duration_s
+        ):
+            self._stop()
+
+    def _stop(self):
+        prof, self._prof = self._prof, None
+        if prof is not None:
+            prof.stop()
+
+    def on_trial_result(self, trial: Trial, result: Dict[str, Any]):
+        self._maybe_stop()
+
+    def on_heartbeat(self):
+        self._maybe_stop()
+
+    def on_experiment_end(self, trials: List[Trial], wall_clock_s: float):
+        self._stop()
 
 
 class ProgressReporter(Callback):

@@ -43,6 +43,7 @@ from distributed_machine_learning_tpu_torch.tune._driver import (
 )
 from distributed_machine_learning_tpu_torch.tune.callbacks import (
     dispatch_safely,
+    experiment_counters,
     with_default_reporter,
 )
 from distributed_machine_learning_tpu_torch.tune.executor import (
@@ -386,6 +387,9 @@ def run(
             store.close()
         except Exception as exc:  # noqa: BLE001 - callbacks still tear down
             log(f"experiment store teardown failed: {exc!r}")
+        counters = experiment_counters(extra)
+        if counters:
+            safe_cb("on_experiment_counters", counters)
         safe_cb("on_experiment_end", trials, wall)
     analysis = ExperimentAnalysis(
         trials, metric=metric, mode=mode, root=store.root, wall_clock_s=wall,

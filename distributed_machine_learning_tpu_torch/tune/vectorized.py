@@ -126,6 +126,7 @@ from distributed_machine_learning_tpu_torch.tune._regression_program import (
 )
 from distributed_machine_learning_tpu_torch.tune.callbacks import (
     dispatch_safely,
+    experiment_counters,
     with_default_reporter,
 )
 from distributed_machine_learning_tpu_torch.tune.experiment import (
@@ -187,6 +188,24 @@ def _static_signature(config: Dict[str, Any]) -> Tuple:
     return tuple(items)
 
 
+def _refuse_population_knobs(cfg: Dict[str, Any]) -> None:
+    """The trainable knobs a population does not take, refused by name
+    (a non-injectable optimizer raises the JAX runner's own ValueError,
+    from ``PopulationOptimizer``)."""
+    if max(int(cfg.get("accumulate_grad_batches", 1)), 1) > 1:
+        raise NotImplementedError(
+            "run_vectorized takes one optimizer step per batch: the JAX "
+            "run_vectorized never reads accumulate_grad_batches and steps "
+            "every batch, so the port refuses it rather than ignore it; "
+            "use tune.run (see ROADMAP.md C)"
+        )
+    if cfg.get("remat"):
+        raise NotImplementedError(
+            "run_vectorized(remat=True): torch.utils.checkpoint does not run "
+            "under torch.func's vmap(grad(...)); see ROADMAP.md A1e"
+        )
+
+
 @dataclass
 class PopulationState:
     """One population on the device: ``params`` ``{name: [K, ...]}``, the
@@ -209,9 +228,8 @@ class _GroupProgram:
         self._static_cfg = dict(static_cfg)
         resolve_rng_impl(cfg)
         _refuse_unported_config(cfg)
-        opt_name = check_supported(
-            cfg.get("optimizer", "adam"),
-            int(cfg.get("accumulate_grad_batches", 1)))
+        _refuse_population_knobs(cfg)
+        opt_name = check_supported(cfg.get("optimizer", "adam"))
         self.device = device
         self.loss_name = str(cfg.get("loss_function", "mse"))
         self.num_epochs = int(cfg.get("num_epochs", 20))
@@ -741,6 +759,9 @@ def run_vectorized(
             store.close()
         except Exception as exc:  # noqa: BLE001 - callbacks still tear down
             log(f"experiment store teardown failed: {exc!r}")
+        counters = experiment_counters(extra)
+        if counters:
+            safe_cb("on_experiment_counters", counters)
         safe_cb("on_experiment_end", trials, wall)
         return wall, utilization
 

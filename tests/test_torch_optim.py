@@ -125,13 +125,24 @@ def test_global_norm_matches_optax():
 
 @pytest.mark.parametrize("name", ["lamb", "adafactor", "lion"])
 def test_unported_optimizers_raise_naming_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # lamb, adafactor and lion are ported in the registry form; the
+    # injected form refuses them as the JAX package's does.
+    with pytest.raises(ValueError) as want:
+        jax_optimizers.make_injected_optimizer(name, lambda s: 1.0)
+    with pytest.raises(ValueError) as got:
         optimizers.make_injected_optimizer(name, lambda s: 1.0)
+    assert "injected mode supports" in str(got.value)
+    assert str(got.value) == str(want.value)
 
 
 def test_gradient_accumulation_and_unknown_names_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.check_supported("adam", accumulate_grad_batches=4)
+    # Accumulation is no longer refused: make_optimizer wraps the chain.
+    tx = optimizers.make_optimizer("adam", 1e-3, accumulate_grad_batches=4)
+    assert isinstance(tx, optimizers.MultiSteps) and tx.every_k == 4
+    assert isinstance(optimizers.make_optimizer("adam", 1e-3),
+                      optimizers.Optimizer)
     with pytest.raises(ValueError, match="Unknown optimizer"):
         optimizers.check_supported("adagrad")
+    with pytest.raises(KeyError, match="Unknown optimizer"):
+        optimizers.make_optimizer("adagrad", 1e-3)
     assert optimizers.check_supported("AdamW") == "adamw"

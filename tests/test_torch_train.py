@@ -227,9 +227,6 @@ def test_dropout_in_training_needs_an_explicit_generator():
 
 @pytest.mark.parametrize("override,error", [
     (dict(input_mode="streaming"), NotImplementedError),
-    (dict(remat=True), NotImplementedError),
-    (dict(optimizer="lion"), NotImplementedError),
-    (dict(accumulate_grad_batches=2), NotImplementedError),
 ])
 def test_unported_features_raise_naming_roadmap(override, error):
     with pytest.raises(error, match="ROADMAP"):
