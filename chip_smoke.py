@@ -126,15 +126,38 @@ nonzero; nothing is caught and passed over):
    (``dots_saveable``), each bf16 attention call held against its plain
    version (``_checking``); adam with remat off, ``dots_saveable``,
    ``nothing_saveable`` and ``everything_saveable``.  Each run's flash
-   launches (the forward twice per layer per micro-step under remat), its
+   launches (the forward twice per layer per micro-step under remat, once
+   under ``everything_saveable``, which takes no checkpoint), its
    logged ``lr`` by optimizer steps, its peak memory and its optimizer
    state's bytes beside ``param_opt_bytes``; peak memory under
-   ``nothing_saveable`` below remat off; with dropout 0.1 on one seed, the
+   ``nothing_saveable`` below remat off, under ``everything_saveable``
+   within 5 % of it; with dropout 0.1 on one seed, the
    parameters still between updates and moving on every 4th micro-step,
    and one optimizer step with remat on equal to remat off within 1e-6 of
    the largest entry; each run's micro-step host ms and device ms.  (c)
    one f32 flagship step with remat and adafactor: the three f32 kernels
    under remat, each call within ``KERNEL_TOL``.
+12. deploy — a sweep's winner deployed.  (a) ``examples/serve_quantized.py``
+   as spelled (the package name changed), at its defaults: an mlp sweep
+   (4 x 3) through ``tune.run``, the f32 export and its calibrated int8
+   sibling, 2 replicas, 200 requests with ``serve.hot_swap`` to int8
+   halfway; its own asserts (precision int8, no bucket built after
+   warmup, the served int8 answers within its bound of the f32 ones).
+   (b) the flagship through ``tune.run`` (2 trials x 1 epoch at the train
+   phase's cut, checkpointed), exported in f32, bf16 and int8 (a
+   calibration batch of 8 rows), each bundle's parameter bytes on the
+   card and forward ms per bucket; one server on the f32 bundle, ~32
+   requests of 1-4 rows in five stages: f32, a hot swap to int8 in
+   mid-traffic, int8, ``/admin/rollback`` to f32, ``/admin/swap`` of the
+   bf16 bundle by directory.  Every stage: no request dropped, no bucket
+   built after warmup, every answer within 3e-2 of the largest entry of
+   the plain version's forward of the same (dequantized) weights, the
+   bf16 flash forward launched by the stage's traffic; int8's parameter
+   bytes under 30 % of f32's.  (c) PBT with
+   ``objective="quality_after_quant"`` over the pbt phase's flash
+   population cut to 8 x 6: one ``quant_evals``, a ``quant_mape`` record
+   for every trial, the best trial by ``pbt_objective`` the one of least
+   ``quant_mape``, and the f32 kernels launched for one more eval pass.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -3129,7 +3152,10 @@ def phase_knobs():
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         fwd_train = launches["flash_fwd"] - evals
-        want_fwd = (2 if policy else 1) * layers_n * micro
+        # everything_saveable keeps every residual (no checkpoint, as in
+        # JAX): one forward per layer, like remat off.
+        reruns = 2 if policy and policy != "everything_saveable" else 1
+        want_fwd = reruns * layers_n * micro
         if (fwd_train != want_fwd
                 or launches["flash_bwd_dkdv"] != layers_n * micro
                 or launches["flash_bwd_dq"] != layers_n * micro):
@@ -3177,6 +3203,10 @@ def phase_knobs():
     if not peak["adam_nothing"] < peak["adam_off"]:
         raise AssertionError(f"knobs: peak memory under nothing_saveable "
                              f"is not below remat off: {peak}")
+    if abs(peak["adam_everything"] - peak["adam_off"]) \
+            > 0.05 * peak["adam_off"]:
+        raise AssertionError(f"knobs: peak memory under everything_saveable "
+                             f"is not within 5 % of remat off: {peak}")
 
     # One optimizer step (4 micro-steps), dropout 0.1 on one seed: remat
     # on against off, the parameters still between updates, and each
@@ -3238,6 +3268,353 @@ def phase_knobs():
     return {"flagship_bf16": total, "f32_step": launches32}
 
 
+# -- phase 12 ---------------------------------------------------------------
+
+# (b) the flagship's sweep at the train phase's cut: 2 trials x 1 epoch of
+# 8 steps of 8 rows, checkpointed each epoch.
+DEPLOY_TRIALS = 2
+DEPLOY_CALIBRATION_ROWS = 8
+DEPLOY_PRECISIONS = ("f32", "bf16", "int8")
+# The /predict gate of a bf16 forward (phase serve), a share of the
+# largest entry of the plain version's answer.
+DEPLOY_TOL = 3e-2
+# (c) the pbt phase's flash population, cut from 16 x 12 to 8 x 6.
+DEPLOY_QUANT = dict(trials=8, epochs=6, interval=3)
+
+
+def _serve_quantized_example(tune_root: str) -> dict:
+    """examples/serve_quantized.py as spelled, the package name changed,
+    at its defaults (its temporary storage given as a directory of ours
+    so that nothing is left behind); its own asserts are the checks."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "serve_quantized.py")
+    with open(path) as f:
+        source = f.read().replace("distributed_machine_learning_tpu",
+                                  "distributed_machine_learning_tpu_torch")
+    module = {"__name__": "serve_quantized", "__file__": path}
+    exec(compile(source, path, "exec"), module)
+    t0 = time.monotonic()
+    module["main"](["--storage", tune_root])
+    return {"wall_s": time.monotonic() - t0}
+
+
+def _dtype_recording(record: dict):
+    """Wrap ``flash_forward`` so that ``record`` counts its calls by the
+    dtype of q.  Returns the saved function."""
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    saved = fa.flash_forward
+
+    def recorded(q, *args, **kwargs):
+        key = str(q.dtype).replace("torch.", "")
+        record[key] = record.get(key, 0) + 1
+        return saved(q, *args, **kwargs)
+
+    fa.flash_forward = recorded
+    return saved
+
+
+def _plain_bundle_forwards(bundle, batches):
+    """The plain version of a bundle's served forward on the card: the
+    flash kernel replaced by its plain version, and a quantized bundle's
+    weights dequantized to bf16 as the engine dequantizes them."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch import quant
+    from distributed_machine_learning_tpu_torch.models import layers
+    from distributed_machine_learning_tpu_torch.ops.flash_attention import (
+        flash_attention_reference,
+    )
+
+    if bundle.precision == "f32":
+        return _plain_forwards(bundle, batches)
+    kernel_fn = layers.flash_attention
+    layers.flash_attention = (
+        lambda q, k, v, scale=None, causal=False:
+        flash_attention_reference(q, k, v, scale, causal)[0]
+    )
+    try:
+        model = bundle.build_model(load_weights=False).to("cuda")
+        fvars = quant.dequantize_variables(bundle.variables, bundle.precision)
+        out = []
+        for x in batches:
+            xt = quant.cast_input(torch.from_numpy(x).to("cuda"),
+                                  bundle.precision)
+            y = quant.apply_variables(model, fvars, xt)
+            out.append(quant.dequantize_output(y).cpu().numpy())
+        return out
+    finally:
+        layers.flash_attention = kernel_fn
+
+
+def _engine_numbers(bundle, seq: int) -> dict:
+    """A fresh engine of ``bundle`` on the card: the bytes its weights
+    hold there (``memory_allocated`` delta, less the buffers that every
+    precision keeps, against ``resident_bytes``) and each bucket's
+    forward ms (median of 5 after a warm-up)."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.serve import InferenceEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    engine = InferenceEngine(bundle, max_bucket=8, device="cuda:0")
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    buffers = sum(int(b.numel() * b.element_size())
+                  for b in engine.model.buffers())
+    forward_ms = {}
+    for b in engine.buckets:
+        x = np.zeros((b, seq, FEATURES), np.float32)
+        engine.predict(x)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.predict(x)
+            times.append((time.perf_counter() - t0) * 1e3)
+        forward_ms[str(b)] = float(np.median(times))
+    out = {"allocated_bytes": allocated, "buffer_bytes": buffers,
+           "param_bytes": allocated - buffers,
+           "resident_bytes": engine.resident_bytes(),
+           "forward_ms": forward_ms}
+    del engine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _deploy_flagship(tune, root: str, card: str) -> dict:
+    """(b): the flagship's sweep, its export in three precisions, and one
+    server through hot swap, rollback and swap."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch import serve
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    seq = FLAGSHIP["max_seq_length"]
+    train, val = dummy_regression_data(num_samples=TRAIN_ROWS,
+                                       seq_len=seq, num_features=FEATURES)
+    counters = _reset_counters()
+    t0 = time.monotonic()
+    analysis = tune.run(
+        tune.with_parameters(tune.train_regressor, train_data=train,
+                             val_data=val),
+        dict(TRAIN, num_epochs=1,
+             learning_rate=tune.choice([1e-3, 3e-4])),
+        metric="validation_loss", mode="min", num_samples=DEPLOY_TRIALS,
+        storage_path=root, name="deploy", verbose=0)
+    sweep = {"wall_s": time.monotonic() - t0,
+             "launches": {c.name: c.count for c in counters}}
+    bad = [t.trial_id for t in analysis.trials
+           if t.status.value != "TERMINATED" or not t.latest_checkpoint]
+    if len(analysis.trials) != DEPLOY_TRIALS or bad:
+        raise AssertionError(f"deploy: the flagship sweep's trials {bad} "
+                             f"did not end TERMINATED with a checkpoint")
+
+    calibration = np.asarray(val.x[:DEPLOY_CALIBRATION_ROWS], np.float32)
+    bundles, export_s = {}, {}
+    for precision in DEPLOY_PRECISIONS:
+        t0 = time.monotonic()
+        out = serve.export_bundle(
+            analysis.root, os.path.join(root, f"bundle_{precision}"),
+            precision=precision,
+            calibration_batch=None if precision == "f32" else calibration)
+        export_s[precision] = time.monotonic() - t0
+        bundles[precision] = serve.load_bundle(out)
+        if bundles[precision].precision != precision:
+            raise AssertionError(f"deploy: {out} reads as "
+                                 f"{bundles[precision].precision}")
+    engines = {p: _engine_numbers(b, seq) for p, b in bundles.items()}
+    share = engines["int8"]["param_bytes"] / engines["f32"]["param_bytes"]
+    if not share < 0.3:
+        raise AssertionError(f"deploy: int8 holds {share:.3f} of f32's "
+                             f"parameter bytes on the card: {engines}")
+
+    rng = np.random.default_rng(1)
+    requests = [rng.normal(size=(int(rng.integers(1, 5)), seq, FEATURES))
+                .astype(np.float32) for _ in range(32)]
+    refs = {p: _plain_bundle_forwards(b, requests)
+            for p, b in bundles.items()}
+    # Stages: (name, requests, the precisions an answer may come from).
+    stages = [("f32", range(0, 8), ("f32",)),
+              ("swap_int8", range(8, 16), ("f32", "int8")),
+              ("int8", range(16, 20), ("int8",)),
+              ("rollback_f32", range(20, 26), ("f32",)),
+              ("swap_bf16", range(26, 32), ("bf16",))]
+    server = serve.PredictionServer(bundles["f32"], port=0, num_replicas=1,
+                                    device="cuda:0", max_bucket=8,
+                                    max_batch_size=8)
+    dtypes: dict = {}
+    saved = _dtype_recording(dtypes)
+    results, events, worst = {}, {}, {}
+    try:
+        server.warmup(np.zeros((1, seq, FEATURES), np.float32))
+        host, port = server.start()
+        url = f"http://{host}:{port}"
+
+        def traffic(idx):
+            answers = {}
+
+            def worker(i):
+                answers[i] = _post(f"{url}/predict",
+                                   {"instances": requests[i].tolist()})
+
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in idx]
+            for t in threads:
+                t.start()
+            return threads, answers
+
+        for name, idx, allowed in stages:
+            if name == "rollback_f32":
+                events["rollback"] = _post(f"{url}/admin/rollback",
+                                           {"reason": "deploy"})
+            elif name == "swap_bf16":
+                events["swap_bf16"] = _post(
+                    f"{url}/admin/swap", {"bundle": bundles["bf16"].path})
+            dtypes.clear()
+            counters = _reset_counters()
+            threads, answers = traffic(idx)
+            if name == "swap_int8":
+                events["swap_int8"] = serve.hot_swap(server.replicas,
+                                                     bundles["int8"])
+            for t in threads:
+                t.join(timeout=600)
+            launches = {c.name: c.count for c in counters}
+            if any(t.is_alive() for t in threads) or len(answers) != len(idx):
+                raise AssertionError(f"deploy: stage {name} dropped "
+                                     f"{len(idx) - len(answers)} requests")
+            stage_err = {}
+            for i in idx:
+                pred = np.asarray(answers[i]["predictions"], np.float32)
+                if (pred.shape != (requests[i].shape[0], 1)
+                        or not np.all(np.isfinite(pred))):
+                    raise AssertionError(f"deploy: {name} answered {pred}")
+                errs = {p: _rel_err(torch.from_numpy(pred),
+                                    torch.from_numpy(refs[p][i]))
+                        for p in allowed}
+                best = min(errs, key=errs.get)
+                stage_err[best] = max(stage_err.get(best, 0.0), errs[best])
+            metrics = server.handle_metrics()
+            new_programs = metrics["compile"]["new_programs_since_warmup"]
+            want = stages[[s[0] for s in stages].index(name)][2][-1]
+            if (max(stage_err.values()) > DEPLOY_TOL or new_programs != 0
+                    or metrics["precision"] != want
+                    or launches[fa.launches.name] < 1
+                    or set(dtypes) != {"bfloat16"}):
+                raise AssertionError(
+                    f"deploy: stage {name}: errors {stage_err} (gate "
+                    f"{DEPLOY_TOL}), new programs {new_programs}, precision "
+                    f"{metrics['precision']} (want {want}), launches "
+                    f"{launches}, flash_forward dtypes {dtypes}")
+            results[name] = {"requests": len(idx), "rel_err": stage_err,
+                             "launches": launches,
+                             "flash_forward_dtypes": dict(dtypes),
+                             "precision": metrics["precision"],
+                             "quality_delta_mape":
+                                 metrics["quality_delta_mape"],
+                             "new_programs_since_warmup": new_programs}
+        final = server.handle_metrics()
+    finally:
+        fa.flash_forward = saved
+        server.close()
+    if (final["swap"]["swaps_total"] != 3
+            or final["swap"]["rollbacks_total"] != 1
+            or not events["rollback"].get("rolled_back")
+            or events["rollback"]["rolled_back_to"] != bundles["f32"].path):
+        raise AssertionError(f"deploy: swap block {final['swap']}, "
+                             f"rollback {events['rollback']}")
+    launches = {}
+    for r in results.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {
+        "sweep": sweep, "export_s": export_s,
+        "quality_delta_mape": {p: b.quality_delta_mape
+                               for p, b in bundles.items()},
+        "engines": engines, "int8_param_share": share,
+        "stages": results,
+        "swap_int8_duration_s": events["swap_int8"]["duration_s"],
+        "rollback_duration_s": events["rollback"]["duration_s"],
+        "swap_bf16_duration_s": events["swap_bf16"]["duration_s"],
+        "requests": len(requests), "latency_ms_p50": final["latency_ms_p50"],
+        "latency_ms_p99": final["latency_ms_p99"], "launches": launches,
+    }
+
+
+def _deploy_quant_population(tune, root: str) -> dict:
+    """(c): PBT with ``objective="quality_after_quant"`` over the pbt
+    phase's flash population, 8 x 6."""
+    train, val = headline_data()
+    rows, epochs = DEPLOY_QUANT["trials"], DEPLOY_QUANT["epochs"]
+    space = headline_space(tune, num_epochs=epochs, attention_type="flash")
+    pbt = tune.PopulationBasedTraining(
+        perturbation_interval=DEPLOY_QUANT["interval"],
+        hyperparam_mutations=_pbt_mutations(tune), quantile_fraction=0.25,
+        seed=1, objective="quality_after_quant")
+    run = _pbt_sweep(tune, train, val, root, "quant", space, pbt,
+                     num_samples=rows, seed=7)
+    trials = run["analysis"].trials
+    layers_n = space["num_layers"]
+    steps = trials[0].results[-2]["steps"]
+    eval_blocks = -(-len(val) // space["batch_size"])
+    # One more eval pass: the int8 re-scoring.
+    want = {"flash_fwd": layers_n * (steps + (epochs + 1) * eval_blocks),
+            "flash_bwd_dkdv": layers_n * steps,
+            "flash_bwd_dq": layers_n * steps}
+    finals = {t.trial_id: t.results[-1] for t in trials}
+    missing = [tid for tid, r in finals.items()
+               if r.get("quant_precision") != "int8"
+               or not np.isfinite(r.get("quant_mape", np.nan))
+               or r["pbt_objective"] != r["quant_mape"]]
+    best = tune.ExperimentAnalysis(trials, metric="pbt_objective",
+                                   mode="min").best_trial
+    lowest = min(finals, key=lambda tid: finals[tid]["quant_mape"])
+    if (run["block"].get("quant_evals") != 1 or missing
+            or best.trial_id != lowest or run["launches"] != want
+            or run["block"]["exploits"] < 1):
+        raise AssertionError(
+            f"deploy quality_after_quant: {run['block']}, trials without a "
+            f"quant record {missing}, best {best.trial_id} (lowest "
+            f"quant_mape {lowest}), launches {run['launches']} (want {want})")
+    run["quant_mape"] = {tid: r["quant_mape"] for tid, r in finals.items()}
+    run["validation_mape"] = {t.trial_id: t.results[-2]["validation_mape"]
+                              for t in trials}
+    run["best_trial"] = best.trial_id
+    return run
+
+
+def phase_deploy():
+    from distributed_machine_learning_tpu_torch import tune
+
+    t_start = time.monotonic()
+    card = smi_line()
+    with tempfile.TemporaryDirectory() as root:
+        example = _serve_quantized_example(os.path.join(root, "example"))
+        emit("deploy", sub="a_serve_quantized", card=card, cut=None,
+             **example)
+        flagship = _deploy_flagship(tune, os.path.join(root, "flagship"),
+                                    card)
+        emit("deploy", sub="b_flagship", card=card,
+             cut=f"{DEPLOY_TRIALS} trials x 1 epoch of 8 steps",
+             **flagship)
+        quant_run = _deploy_quant_population(tune, os.path.join(root, "pbt"))
+        emit("deploy", sub="c_quality_after_quant", card=card,
+             rows=DEPLOY_QUANT["trials"], epochs=DEPLOY_QUANT["epochs"],
+             cut="8 x 6 (the pbt phase's flash population, 16 x 12)",
+             quant_mape=quant_run["quant_mape"],
+             validation_mape=quant_run["validation_mape"],
+             best_trial=quant_run["best_trial"], **_pbt_line(quant_run))
+    emit("deploy", card=card, total_s=time.monotonic() - t_start)
+    return {"flagship_serve": flagship["launches"],
+            "quant_population": quant_run["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3261,6 +3638,7 @@ def main() -> int:
     launches_pbt = phase_pbt()
     launches_resume = phase_resume()
     launches_knobs = phase_knobs()
+    launches_deploy = phase_deploy()
 
     sources = {
         "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
@@ -3300,6 +3678,12 @@ def main() -> int:
             # remat step with adafactor.
             "launches_knobs": {k: v[name]
                                for k, v in launches_knobs.items()},
+            # The deploy phase: the flagship served through swap, rollback
+            # and swap in f32, int8 and bf16 (the bf16 kernels, one
+            # forward per layer per bucket forward), and the flash
+            # population under PBT's quality_after_quant (f32).
+            "launches_deploy": {k: v[name]
+                                for k, v in launches_deploy.items()},
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},

@@ -4,6 +4,10 @@
         [--device cuda|cpu] [--replicas N] [--max-batch-size N]
         [--max-bucket N] [--batcher continuous|micro] [--max-queue N]
         [--warmup-shape 2048,16]
+    python -m distributed_machine_learning_tpu_torch export-bundle
+        EXPERIMENT_DIR OUT_DIR [--metric M] [--mode min|max] [--trial ID]
+        [--precision f32|bf16|int8] [--calibration BATCH.npy]
+        [--device cuda|cpu]
 
 The flags keep the names of ``python -m distributed_machine_learning_tpu
 serve``; those whose modules are not ported yet (autoscale, gang,
@@ -82,7 +86,8 @@ def _serve(rest) -> None:
             "device": args.device,
             "replicas": args.replicas,
             "batcher": args.batcher,
-            "endpoints": ["/predict", "/healthz", "/metrics"],
+            "endpoints": ["/predict", "/healthz", "/metrics", "/admin/swap",
+                          "/admin/rollback"],
         }), flush=True)
         while True:
             time.sleep(3600)
@@ -92,13 +97,63 @@ def _serve(rest) -> None:
         server.close()
 
 
+def _export_bundle(rest) -> None:
+    p = argparse.ArgumentParser(prog="export-bundle")
+    p.add_argument("experiment_dir",
+                   help="an experiment directory (<storage_path>/<name>) "
+                        "of either package")
+    p.add_argument("out_dir", help="bundle directory to create")
+    p.add_argument("--metric", default=None,
+                   help="objective (default: recorded in "
+                        "experiment_state.json)")
+    p.add_argument("--mode", default=None, choices=("min", "max"))
+    p.add_argument("--trial", default=None,
+                   help="serve a specific trial instead of the best")
+    p.add_argument("--precision", default="f32",
+                   choices=("f32", "bf16", "int8"),
+                   help="stored weight dtype (quant/); bf16/int8 require "
+                        "--calibration")
+    p.add_argument("--calibration", default=None,
+                   help="path to a .npy calibration batch (n, features...) "
+                        "on which a quantized export measures its quality "
+                        "delta")
+    p.add_argument("--device", default="cuda",
+                   help="where the calibration forwards run: cuda, cuda:i "
+                        "or cpu")
+    args = p.parse_args(rest)
+
+    import numpy as np
+
+    from distributed_machine_learning_tpu_torch.serve import export_bundle
+
+    try:
+        calibration = (np.load(args.calibration) if args.calibration
+                       else None)
+        out = export_bundle(
+            args.experiment_dir, args.out_dir,
+            metric=args.metric, mode=args.mode, trial_id=args.trial,
+            precision=args.precision, calibration_batch=calibration,
+            device=args.device,
+        )
+    except (FileNotFoundError, ValueError, NotImplementedError,
+            RuntimeError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        raise SystemExit(1) from None
+    note = f" [{args.precision}]" if args.precision != "f32" else ""
+    print(f"exported best trial of {args.experiment_dir} -> {out}{note}")
+
+
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     usage = (
-        "usage: python -m distributed_machine_learning_tpu_torch serve "
-        "--bundle <dir> [--device cuda|cpu] [args]\n"
-        "  serve   HTTP prediction service over device-pinned replicas\n"
-        "          (/predict /healthz /metrics)"
+        "usage: python -m distributed_machine_learning_tpu_torch "
+        "{serve,export-bundle} [args]\n"
+        "  serve          HTTP prediction service over device-pinned "
+        "replicas\n"
+        "                 (/predict /healthz /metrics /admin/swap "
+        "/admin/rollback)\n"
+        "  export-bundle  experiment dir -> servable bundle "
+        "(f32, bf16 or int8)"
     )
     if not argv or argv[0] in ("-h", "--help"):
         print(usage)
@@ -106,6 +161,8 @@ def main(argv=None) -> None:
     cmd, rest = argv[0], argv[1:]
     if cmd == "serve":
         _serve(rest)
+    elif cmd == "export-bundle":
+        _export_bundle(rest)
     else:
         print(usage, file=sys.stderr)
         raise SystemExit(2)

@@ -2,16 +2,18 @@
 
 ``build_model(config, input_features)`` builds a model from the same
 trial-config keys and defaults as ``distributed_machine_learning_tpu.
-models.build_model``.  Ported so far: ``transformer`` and
+models.build_model``.  Ported so far: ``mlp``, ``transformer`` and
 ``simple_transformer`` (the other families are in ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
+from distributed_machine_learning_tpu_torch.models.mlp import MLPRegressor
 from distributed_machine_learning_tpu_torch.models.transformer import (
     SimpleTransformerRegressor,
     TransformerRegressor,
@@ -41,6 +43,17 @@ def compute_dtype_of(config: Dict[str, Any]) -> Optional[torch.dtype]:
             f"Unknown compute_dtype {cd!r}; expected one of "
             f"{sorted(_DTYPE_NAMES)}"
         ) from None
+
+
+@models.register("mlp")
+def _build_mlp(config: Dict[str, Any], input_features: int):
+    return MLPRegressor(
+        input_features=input_features,
+        hidden_sizes=tuple(config.get("hidden_sizes", (128, 64))),
+        dropout_rate=config.get("dropout", 0.0),
+        out_features=config.get("out_features", 1),
+        dtype=compute_dtype_of(config),
+    )
 
 
 @models.register("transformer")
@@ -86,9 +99,24 @@ def _build_simple_transformer(config: Dict[str, Any], input_features: int):
     )
 
 
+# Families whose first layer reads a whole flattened row.
+FLATTENING_FAMILIES = ("mlp",)
+
+
+def input_width(config: Dict[str, Any], row_shape: Sequence[int]) -> int:
+    """The ``input_features`` that :func:`build_model` takes for rows of
+    ``row_shape`` (one example's shape, without the batch axis): the mlp
+    flattens a row, as flax sizes its first layer from the flattened row
+    at init; the sequence families read the last axis."""
+    if str(config.get("model", "transformer")) in FLATTENING_FAMILIES:
+        return int(np.prod(row_shape))
+    return int(row_shape[-1])
+
+
 def build_model(config: Dict[str, Any], input_features: int):
     """Construct a model from a trial config; ``config['model']`` picks the
-    family, ``input_features`` is the width of one input row."""
+    family, ``input_features`` is the width its first layer reads
+    (:func:`input_width` of a row's shape)."""
     return models.get(config.get("model", "transformer"))(
         config, int(input_features)
     )
@@ -110,6 +138,8 @@ __all__ = [
     "build_model",
     "compute_dtype_of",
     "init_parameters",
+    "input_width",
+    "MLPRegressor",
     "TransformerRegressor",
     "SimpleTransformerRegressor",
 ]

@@ -72,28 +72,51 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield path, value
 
 
+def _port_leaf(path: Tuple[str, ...], ndim: int
+               ) -> Tuple[str, Optional[List[int]]]:
+    """The port's key of the flax leaf at ``path`` and the permutation of
+    its axes into the port layout (None: the same layout)."""
+    module, name = path[-2], path[-1]
+    axes = None
+    if name == "kernel":
+        if module in _CONV_MODULES:
+            axes = [2, 1, 0]
+        else:
+            n_in = _kernel_in_dims(module, ndim)
+            axes = list(range(n_in, ndim)) + list(range(n_in))
+        name = "weight"
+    elif name == "scale":
+        name = "weight"
+    elif name != "bias":
+        raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
+    return ".".join(path[:-1] + (name,)), axes
+
+
 def from_flax_params(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """A flax ``params`` tree (nested dicts of numpy arrays) -> a torch
-    ``state_dict`` of float32 tensors for the port's model."""
+    """A flax ``params`` tree (nested dicts of numpy arrays, or of bf16
+    tensors) -> a torch ``state_dict`` of float32 tensors for the port's
+    model."""
     state = OrderedDict()
     for path, leaf in _flatten(params):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().to("cpu", torch.float32).numpy()
         arr = np.asarray(leaf)
-        module, name = path[-2], path[-1]
-        if name == "kernel":
-            if module in _CONV_MODULES:
-                arr = arr.transpose(2, 1, 0)
-            else:
-                n_in = _kernel_in_dims(module, arr.ndim)
-                arr = arr.transpose(
-                    list(range(n_in, arr.ndim)) + list(range(n_in))
-                )
-            name = "weight"
-        elif name == "scale":
-            name = "weight"
-        elif name != "bias":
-            raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
-        key = ".".join(path[:-1] + (name,))
+        key, axes = _port_leaf(path, arr.ndim)
+        if axes is not None:
+            arr = arr.transpose(axes)
         state[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+    return state
+
+
+def from_flax_tensors(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``params`` tree of tensors -> the port's parameter names, each
+    leaf permuted into the port layout as a view: dtype and device stay
+    (a dequantized bf16 tree on the card goes to ``functional_call``
+    without a copy)."""
+    state = {}
+    for path, leaf in _flatten(params):
+        key, axes = _port_leaf(path, leaf.dim())
+        state[key] = leaf if axes is None else leaf.permute(*axes)
     return state
 
 
@@ -118,8 +141,12 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def input_features_of(params: Mapping[str, Any]) -> int:
-    """Width of one input row, read off the input projection kernel."""
-    return int(np.shape(params["input_projection"]["kernel"])[0])
+    """The ``input_features`` of ``build_model`` for a flax params tree,
+    read off the first layer's kernel: the input projection of a
+    transformer (one row's width), ``Dense_0`` of an mlp (a flattened
+    row's width)."""
+    first = params["Dense_0" if "Dense_0" in params else "input_projection"]
+    return int(np.shape(first["kernel"])[0])
 
 
 def stack_rows(states: Sequence[Mapping[str, torch.Tensor]]

@@ -16,8 +16,9 @@ nothing reads torch's global RNG in training.  Evaluation draws nothing.
 
 Rematerialization (:func:`remat_call`) runs a block under a non-reentrant
 ``torch.utils.checkpoint``, with the ``jax.checkpoint_policies`` names
-mapped onto selective-checkpoint policies (:func:`resolve_remat_policy`),
-and replays the block's dropout generator in the recompute.
+mapped onto selective-checkpoint policies (:func:`resolve_remat_policy`;
+``everything_saveable`` runs the block without a checkpoint), and
+replays the block's dropout generator in the recompute.
 
 Sequence parallelism (``seq_axis``, ring/Ulysses) and the mixture-of-
 experts feed-forward are not ported yet (ROADMAP.md queue A); asking for
@@ -71,22 +72,29 @@ _DOTS = frozenset({_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
 _DOTS_NO_BATCH = frozenset({_aten.mm.default, _aten.addmm.default})
 
 
-def _saving(ops: Optional[frozenset]) -> Callable:
-    """A selective-checkpoint policy that saves the outputs of ``ops``
-    (every op when None) and recomputes the rest."""
+def _saving(ops: frozenset) -> Callable:
+    """A selective-checkpoint policy that saves the outputs of ``ops`` and
+    recomputes the rest."""
 
     def policy(ctx, op, *args, **kwargs):
-        if ops is None or op in ops:
+        if op in ops:
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
 
     return policy
 
 
+# ``everything_saveable`` keeps every residual and recomputes nothing, as
+# in JAX: no checkpoint at all, so plain autograd keeps what each backward
+# reads.  A selective policy cannot stand in for it, because the flash
+# kernels launch inside an ``autograd.Function`` whose outputs no policy
+# can save (the recompute would rerun them).
+SAVE_EVERYTHING = "everything_saveable"
+
 # jax.checkpoint_policies names -> torch policies; None recomputes all.
 REMAT_POLICIES = {
     "nothing_saveable": None,
-    "everything_saveable": _saving(None),
+    "everything_saveable": SAVE_EVERYTHING,
     "dots_saveable": _saving(_DOTS),
     "checkpoint_dots": _saving(_DOTS),
     "dots_with_no_batch_dims_saveable": _saving(_DOTS_NO_BATCH),
@@ -111,13 +119,16 @@ def remat_call(block: Callable, x: torch.Tensor, rng, policy=None
                ) -> torch.Tensor:
     """``block(x, rng)`` under a non-reentrant ``torch.utils.checkpoint``:
     its activations are recomputed in the backward, but for what
-    ``policy`` (from :func:`resolve_remat_policy`) saves.
+    ``policy`` (from :func:`resolve_remat_policy`) saves;
+    :data:`SAVE_EVERYTHING` runs the block plainly.
 
     ``torch.utils.checkpoint`` replays only the default generators'
     state, and the masks here come from the explicit ``rng``; a plain
     checkpoint would draw new masks in the recompute (wrong gradients)
     and advance ``rng`` twice.  So the generator's state is taken before
     the block, set back for the recompute, and restored after it."""
+    if policy == SAVE_EVERYTHING:
+        return block(x, rng)
     if rng is not None and not isinstance(rng, torch.Generator):
         raise NotImplementedError(
             "remat draws its masks from a torch.Generator; a population's "
@@ -185,7 +196,18 @@ class Dense(nn.Module):
         lead = x.shape[: x.dim() - n_in]
         dt = _compute_dtype(self.dtype, x, self.weight)
         w = self.weight.to(dt).reshape(-1, int(np.prod(self.in_shape)))
-        y = F.linear(x.to(dt).reshape(*lead, -1), w, self.bias.to(dt).reshape(-1))
+        x = x.to(dt).reshape(*lead, -1)
+        b = self.bias.to(dt).reshape(-1)
+        if dt == torch.float32 or torch.is_grad_enabled():
+            y = F.linear(x, w, b)
+        else:
+            # flax rounds the product to the compute dtype, then adds the
+            # bias: two roundings, where the fused addmm rounds once.  An
+            # inference forward (serving, calibration, evaluation) rounds
+            # as flax does, so its bf16 answers are the JAX package's; a
+            # training step keeps the fused addmm (one launch less per
+            # layer, 8 % of a bf16 flagship step on an H100).
+            y = F.linear(x, w) + b
         return y.reshape(*lead, *self.out_shape)
 
 

@@ -1,4 +1,5 @@
-"""Serving plane of the port: bundle -> engine -> batcher -> replicas -> HTTP."""
+"""Serving plane of the port: sweep -> bundle -> engine -> batcher ->
+replicas -> HTTP, with hot swap and rollback."""
 
 from distributed_machine_learning_tpu_torch.serve.batcher import (
     BatcherStopped,
@@ -13,6 +14,7 @@ from distributed_machine_learning_tpu_torch.serve.engine import (
 from distributed_machine_learning_tpu_torch.serve.export import (
     BUNDLE_VERSION,
     ServableBundle,
+    export_bundle,
     load_bundle,
     write_bundle,
 )
@@ -29,11 +31,18 @@ from distributed_machine_learning_tpu_torch.serve.replica import (
     ReplicaTimeout,
 )
 from distributed_machine_learning_tpu_torch.serve.server import PredictionServer
+from distributed_machine_learning_tpu_torch.serve.swap import (
+    HISTORY_DEPTH,
+    hot_swap,
+    rollback,
+    warm_swap_bundle,
+)
 
 __all__ = [
     "AllReplicasOpen",
     "BUNDLE_VERSION",
     "BatcherStopped",
+    "HISTORY_DEPTH",
     "CircuitBreaker",
     "ContinuousBatcher",
     "InferenceEngine",
@@ -48,6 +57,10 @@ __all__ = [
     "ServableBundle",
     "ServeMetrics",
     "bucket_sizes",
+    "export_bundle",
+    "hot_swap",
     "load_bundle",
+    "rollback",
+    "warm_swap_bundle",
     "write_bundle",
 ]

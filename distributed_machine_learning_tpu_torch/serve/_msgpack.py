@@ -9,8 +9,12 @@ use_bin_type=True)`` for such trees, so bundles written by either package
 read in the other.  Written here because the card's machine has no
 ``msgpack`` package.
 
-bfloat16 leaves decode to float32 (the widening is exact); numpy has no
-bfloat16 dtype.
+numpy has no bfloat16 dtype, so a bfloat16 leaf is a ``torch.bfloat16``
+tensor on the CPU both ways: :func:`packb` writes its bits under flax's
+dtype name ``"bfloat16"``, and :func:`unpackb` decodes such a leaf to
+one, so a bf16 tree stays bf16 (no widening).  :func:`to_bfloat16`
+rounds float32 to bfloat16 to nearest-even, the bits ``ml_dtypes`` (and
+so ``jnp.astype``) gives.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import struct
 from typing import Any, Tuple
 
 import numpy as np
+import torch
 
 EXT_NDARRAY = 1
 EXT_COMPLEX = 2
@@ -85,6 +90,37 @@ def _pack_ext(code: int, data: bytes, out: bytearray) -> None:
     out += data
 
 
+def bf16_bits(arr) -> np.ndarray:
+    """float32 -> bfloat16 bits (uint16), rounded to nearest-even; a NaN
+    keeps its sign and becomes the quiet NaN, as ``ml_dtypes`` does."""
+    bits = np.ascontiguousarray(arr, dtype=np.float32).view(np.uint32)
+    rounded = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) >> 16
+    nan = (bits & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    quiet = (bits >> 16) & np.uint32(0x8000) | np.uint32(0x7FC0)
+    return np.where(nan, quiet, rounded).astype(np.uint16)
+
+
+def _bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(
+        np.array(bits, np.uint16).view(np.int16)).view(torch.bfloat16)
+
+
+def to_bfloat16(arr) -> torch.Tensor:
+    """float32 (numpy or a CPU tensor) -> a CPU ``torch.bfloat16`` tensor
+    holding :func:`bf16_bits`."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().to("cpu", torch.float32).numpy()
+    return _bf16_tensor(bf16_bits(arr))
+
+
+def _tensor_payload(t: torch.Tensor) -> bytes:
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        return packb((tuple(t.shape), "bfloat16", bits.tobytes("C")))
+    return _ndarray_payload(t.numpy())
+
+
 def _ndarray_payload(arr: np.ndarray) -> bytes:
     if arr.dtype.hasobject or arr.dtype.fields is not None:
         raise ValueError("object and structured dtypes are not serializable")
@@ -100,6 +136,8 @@ def _pack(obj: Any, out: bytearray) -> None:
         out.append(0xC2)
     elif isinstance(obj, np.ndarray):
         _pack_ext(EXT_NDARRAY, _ndarray_payload(obj), out)
+    elif isinstance(obj, torch.Tensor):
+        _pack_ext(EXT_NDARRAY, _tensor_payload(obj), out)
     elif isinstance(obj, np.generic):
         _pack_ext(EXT_NPSCALAR, _ndarray_payload(np.asarray(obj)), out)
     elif isinstance(obj, int):
@@ -143,11 +181,11 @@ def _dtype_of(name: str) -> np.dtype:
     return np.dtype(np.uint16 if name == "bfloat16" else name)
 
 
-def _ndarray_from(data: bytes) -> np.ndarray:
+def _ndarray_from(data: bytes):
     shape, name, buf = unpackb(data, ext=False)
     arr = np.frombuffer(buf, dtype=_dtype_of(name)).reshape(shape)
     if name == "bfloat16":
-        arr = (arr.astype(np.uint32) << 16).view(np.float32)
+        return _bf16_tensor(arr)
     return arr
 
 
@@ -235,6 +273,8 @@ def _unchunk(tree: Any) -> Any:
         if _CHUNKED in tree:
             shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
             chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+            if isinstance(chunks[0], torch.Tensor):
+                return torch.cat(chunks).reshape(shape)
             return np.concatenate(chunks).reshape(shape)
         return {k: _unchunk(v) for k, v in tree.items()}
     return tree

@@ -9,9 +9,18 @@ the engine's device — on a card, on a stream of the engine's own, so
 replicas sharing a card do not serialize on the default stream — and
 returns host numpy float32.
 
+A quantized bundle (``precision`` bf16 or int8, ``quant/``) keeps its
+stored tree on the device as it is: int8 codes with their scales, or bf16
+leaves.  Each forward dequantizes it to bf16 (``quant.dequantize_
+variables``), maps the tree onto the model through ``models/convert.py``
+and ``torch.func.functional_call``, casts the input to bf16 and returns
+f32, as the JAX engine's quantized program does; the model's own
+parameters never leave the CPU.
+
 ``program_stats()`` counts the buckets built (the first forward at each
-bucket shape) and the forwards run.  The JAX engine's AOT executable and
-persistent XLA cache tiers have no counterpart yet: PyTorch runs eagerly.
+bucket shape and precision) and the forwards run.  The JAX engine's AOT
+executable and persistent XLA cache tiers have no counterpart yet:
+PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -42,6 +51,32 @@ def bucket_sizes(max_bucket: int = DEFAULT_MAX_BUCKET) -> Tuple[int, ...]:
     return tuple(sizes)
 
 
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _to_device_tree(tree, device: torch.device):
+    """A bundle's stored tree as tensors on ``device``, dtypes kept."""
+    from distributed_machine_learning_tpu_torch.quant.core import as_tensor
+
+    if isinstance(tree, dict):
+        return {k: _to_device_tree(v, device) for k, v in tree.items()}
+    return as_tensor(tree).to(device)
+
+
+def _to_device_buffers(model: torch.nn.Module, device: torch.device):
+    """Move ``model``'s buffers (position tables) to ``device`` and leave
+    its parameters where they are: a quantized engine brings its weights
+    to every forward."""
+    for module in model.modules():
+        for name, buf in list(module._buffers.items()):
+            if buf is not None:
+                module._buffers[name] = buf.to(device)
+    return model
+
+
 class InferenceEngine:
     """A bundle's forward pass on one device, bucketed by batch size.
 
@@ -55,7 +90,16 @@ class InferenceEngine:
     ):
         self.device = resolve_device(device)
         self.bundle = bundle
-        self.model = bundle.build_model().to(self.device)
+        self._precision = bundle.precision
+        self._variables = None
+        if self._precision == "f32":
+            self.model = bundle.build_model().to(self.device)
+        else:
+            self.model = _to_device_buffers(
+                bundle.build_model(load_weights=False), self.device)
+            self._variables = _to_device_tree(
+                {k: v for k, v in bundle.variables.items()
+                 if k in ("params", "quant_scales")}, self.device)
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -68,7 +112,15 @@ class InferenceEngine:
 
     @property
     def precision(self) -> str:
-        return self.bundle.precision
+        return self._precision
+
+    def resident_bytes(self) -> int:
+        """Bytes of the weights this engine keeps on its device."""
+        if self._variables is None:
+            tensors = list(self.model.parameters())
+        else:
+            tensors = _leaves(self._variables)
+        return sum(int(t.numel() * t.element_size()) for t in tensors)
 
     @property
     def buckets(self) -> Tuple[int, ...]:
@@ -93,8 +145,19 @@ class InferenceEngine:
 
     def _forward(self, x: np.ndarray) -> np.ndarray:
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        out = self.model(xt)
-        return out.float().cpu().numpy()
+        if self._variables is None:
+            return self.model(xt).float().cpu().numpy()
+        from torch.func import functional_call
+
+        from distributed_machine_learning_tpu_torch import quant
+        from distributed_machine_learning_tpu_torch.models.convert import (
+            from_flax_tensors,
+        )
+
+        fvars = quant.dequantize_variables(self._variables, self._precision)
+        out = functional_call(self.model, from_flax_tensors(fvars["params"]),
+                              (quant.cast_input(xt, self._precision),))
+        return quant.dequantize_output(out).cpu().numpy()
 
     def _run_bucket(self, x: np.ndarray) -> np.ndarray:
         """One padded chunk: pad the batch dim to its bucket, run, slice."""
@@ -103,7 +166,9 @@ class InferenceEngine:
         if n < bucket:
             pad = np.zeros((bucket - n, *x.shape[1:]), dtype=x.dtype)
             x = np.concatenate([x, pad], axis=0)
-        key = (bucket, x.shape[1:], str(x.dtype))
+        # Precision is part of the key: an int8 forward never counts as
+        # an f32 bucket's.
+        key = (bucket, x.shape[1:], str(x.dtype), self._precision)
         with self._lock, torch.inference_mode():
             if self._stream is not None:
                 with torch.cuda.stream(self._stream):

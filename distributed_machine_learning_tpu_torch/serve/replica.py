@@ -12,8 +12,12 @@ full (:class:`Overloaded`, HTTP 429), a missed deadline is charged to
 the serving slot (:class:`ReplicaTimeout`, HTTP 504), and a request whose
 replica died before flushing it is redispatched to a survivor.
 
+The set owns the live bundle pointer; :meth:`ReplicaSet.hot_swap`
+(``serve/swap.py``) promotes a new bundle slot by slot and retains the
+outgoing one for rollback.
+
 Not yet ported: the shed watermark, the autoscaler (elastic add/remove),
-hot swap, gang replicas and chaos fault plans (ROADMAP.md queue A).
+gang replicas and chaos fault plans (ROADMAP.md A8).
 """
 
 from __future__ import annotations
@@ -302,13 +306,23 @@ class ReplicaSet:
         # replica re-earns traffic through a half-open probe.
         self._breakers = [CircuitBreaker() for _ in range(num_replicas)]
         self._lock = threading.Lock()
+        # Structural changes (hot swap, rollback) serialize here so two
+        # never interleave; dispatch only takes _lock.
+        self._scale_lock = threading.Lock()
         self._rr = 0
         self.restarts = 0
         self.timeouts = 0
         self.sheds = 0
         self.redispatches = 0
+        self.swaps = 0
+        self.swap_history: List[Dict[str, Any]] = []
+        # Retired bundles retained for rollback (serve/swap.py), bounded
+        # to swap.HISTORY_DEPTH entries.
+        self.bundle_history: List[Dict[str, Any]] = []
+        self.rollbacks = 0
         self._closing = False
         self._warmup_programs: Optional[int] = None
+        self._warmup_sample = None
         self.replicas: List[Replica] = [
             Replica(r, bundle, dev, **self._kwargs)
             for r, dev in enumerate(replica_devices(device, num_replicas))
@@ -444,9 +458,19 @@ class ReplicaSet:
             replicas = list(self.replicas)
         for r in replicas:
             r.engine.warmup(sample)
+        self._warmup_sample = np.asarray(sample)
         stats = self.program_stats()
         self._warmup_programs = stats["programs"]
         return stats
+
+    def hot_swap(self, new_bundle: ServableBundle, sample=None,
+                 warm: bool = True) -> Dict[str, Any]:
+        """Zero-downtime bundle swap — see ``serve/swap.py``."""
+        from distributed_machine_learning_tpu_torch.serve.swap import (
+            hot_swap,
+        )
+
+        return hot_swap(self, new_bundle, sample=sample, warm=warm)
 
     def program_stats(self) -> Dict[str, Any]:
         with self._lock:

@@ -1,4 +1,5 @@
-"""Stdlib HTTP front end: /predict, /healthz, /metrics.
+"""Stdlib HTTP front end: /predict, /healthz, /metrics, /admin/swap,
+/admin/rollback.
 
 Port of ``distributed_machine_learning_tpu/serve/server.py``::
 
@@ -9,9 +10,12 @@ Port of ``distributed_machine_learning_tpu/serve/server.py``::
                    504 on a per-request deadline miss
     GET  /healthz  {"status": "ok"|"degraded"|"down", "replicas": [...]}
     GET  /metrics  windowed latency p50/p99, throughput, queue depth,
-                   batch fill, breaker and admission counters, buckets built
-
-The admin routes (hot swap, rollback) wait for the swap module.
+                   batch fill, breaker and admission counters, buckets
+                   built, swap history, precision and quality delta
+    POST /admin/swap  {"bundle": "<dir>"} -> zero-downtime hot swap of a
+                   new bundle into the live ReplicaSet (serve/swap.py)
+    POST /admin/rollback  -> re-promote the newest retained prior bundle
+                   (409 when none is retained)
 """
 
 from __future__ import annotations
@@ -101,8 +105,32 @@ class PredictionServer:
             "replicas": health,
             "restarts": self.replicas.restarts,
             "model_family": self.bundle.model_family,
-            "precision": self.bundle.precision,
+            # The replica set owns the live bundle pointer: a swap driven
+            # through it directly must flip the reported precision too.
+            "precision": self.replicas.bundle.precision,
         }
+
+    def handle_swap(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """Zero-downtime promotion of a new bundle (serve/swap.py)."""
+        bundle_dir = body.get("bundle")
+        if not bundle_dir:
+            raise ValueError('request body needs a "bundle" directory')
+        from distributed_machine_learning_tpu_torch.serve.swap import (
+            warm_swap_bundle,
+        )
+
+        event = warm_swap_bundle(self.replicas, str(bundle_dir))
+        self.bundle = self.replicas.bundle
+        return {"swapped": True, **event}
+
+    def handle_rollback(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """Re-promote the newest retained prior bundle (serve/swap.py)."""
+        from distributed_machine_learning_tpu_torch.serve import swap
+
+        event = swap.rollback(self.replicas,
+                              reason=str(body.get("reason", "admin")))
+        self.bundle = self.replicas.bundle
+        return {"rolled_back": True, **event}
 
     def handle_metrics(self) -> Dict[str, Any]:
         batcher = self.replicas.batcher_stats()
@@ -120,8 +148,19 @@ class PredictionServer:
                 "queue_depth": batcher.get("queue_depth", 0),
                 "redispatches": self.replicas.redispatches,
             },
+            "swap": {
+                "swaps_total": self.replicas.swaps,
+                "history": self.replicas.swap_history[-5:],
+                "history_depth": len(self.replicas.bundle_history),
+                "retained": [e.get("path")
+                             for e in self.replicas.bundle_history],
+                "rollbacks_total": self.replicas.rollbacks,
+            },
             "checkpoint_load_s": round(self.bundle.checkpoint_load_s, 4),
-            "precision": self.bundle.precision,
+            # Read off the set's live bundle pointer, so a hot swap flips
+            # them whoever drove it.
+            "precision": self.replicas.bundle.precision,
+            "quality_delta_mape": self.replicas.bundle.quality_delta_mape,
         }
 
     # -- lifecycle -----------------------------------------------------------
@@ -159,14 +198,26 @@ class PredictionServer:
                     self._reply(500, {"error": repr(exc)})
 
             def do_POST(self):
-                if self.path != "/predict":
+                if self.path not in ("/predict", "/admin/swap",
+                                     "/admin/rollback"):
                     self._reply(404, {"error": f"no route {self.path}"})
                     return
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(length) or b"{}")
+                    if self.path == "/admin/swap":
+                        self._reply(200, server.handle_swap(body))
+                        return
+                    if self.path == "/admin/rollback":
+                        try:
+                            self._reply(200, server.handle_rollback(body))
+                        except LookupError as exc:
+                            # Nothing retained: a conflict with the
+                            # current state, not a bad request.
+                            self._reply(409, {"error": str(exc)})
+                        return
                     self._reply(200, server.handle_predict(body))
-                except ValueError as exc:
+                except (ValueError, FileNotFoundError) as exc:
                     server.metrics.observe_error()
                     self._reply(400, {"error": str(exc)})
                 except Overloaded as exc:

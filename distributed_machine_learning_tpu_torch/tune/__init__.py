@@ -21,12 +21,14 @@ trial runs outside a sweep under ``tune.session.standalone()``.
 Ported so far: ``tune.run`` with the thread executor, the search space,
 ``RandomSearch``/``GridSearch``/``BayesOptSearch`` and warm-start points,
 the FIFO, ASHA, PBT and PB2 schedulers, the stoppers, the experiment store and
-analysis, the logger/JSONL/progress/TensorBoard/profiler callbacks,
-pickle-free checkpoints, the session and ``train_regressor`` with every
+analysis (``best_model`` and ``export_bundle``, on the port's
+experiments and the JAX package's), the logger/JSONL/progress/
+TensorBoard/profiler callbacks, pickle-free checkpoints (the JAX
+package's msgpack ones are read too), the session and ``train_regressor`` with every
 optimizer, gradient accumulation and remat; and ``tune.run_vectorized``, which
 trains a population of trials as one batched program (the bench
-headline's runner, with PBT and PB2 as a row gather of the population;
-``device="cpu"`` without a card).  The rest (TPE,
+headline's runner, with PBT and PB2 as a row gather of the population
+and PBT's ``quality_after_quant``; ``device="cpu"`` without a card).  The rest (TPE,
 HyperBand, the median rule, ``Repeater``, the process executor, the
 journal, remote storage, the sharded runners) is in ROADMAP.md queue A.
 """

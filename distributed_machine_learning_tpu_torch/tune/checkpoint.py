@@ -25,6 +25,15 @@ index that names it is replaced last, and the tensor file of the old index
 is deleted only after that.  A kill at any point leaves an index whose
 bytes are on storage: the old checkpoint, or the new one.
 
+The JAX package's checkpoints read here too: ``ckpt_NNNNNN.msgpack``
+(a flax msgpack tree) with its ``.manifest.json`` sidecar (sha256 + byte
+count), decoded by ``serve/_msgpack.py``.  They list, restore and fall
+back beside the port's own, and come back in the flax layout (nested
+dicts of numpy arrays with ``kernel``/``scale`` leaves): a caller maps
+their ``params`` through ``models/convert.py::from_flax_params``
+(:func:`is_flax_checkpoint` tells the two apart).  The JAX package's
+sharded generations (``gen_NNNNNN/``) are not read (ROADMAP.md A7).
+
 bf16 has no numpy dtype, so every tensor is written as its bytes
 (``tensor.view(torch.uint8)``) and read back by viewing them as its dtype:
 a round trip gives the same bits and dtypes.  Nothing here imports
@@ -38,6 +47,7 @@ import hashlib
 import json
 import posixpath
 import re
+from struct import error as struct_error
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,6 +57,12 @@ from distributed_machine_learning_tpu_torch.tune.storage import get_storage
 
 FORMAT = "dml-torch-tensors-v1"
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.json$")
+# The JAX package's msgpack checkpoints and its sidecar.
+_MSGPACK_RE = re.compile(r"^ckpt_(\d+)\.msgpack$")
+MSGPACK_SUFFIX = ".msgpack"
+MSGPACK_MANIFEST_SUFFIX = ".manifest.json"
+# The JAX package's sharded generations (read by neither list nor load).
+GEN_RE = re.compile(r"^gen_(\d+)$")
 INDEX_SUFFIX = ".json"
 TENSORS_SUFFIX = ".tensors"
 _ALIGN = 64
@@ -197,13 +213,51 @@ def _tensors_of(backend, p: str, meta: Dict[str, Any]) -> str:
     return backend.join(posixpath.dirname(p), name)
 
 
+def is_flax_checkpoint(path: Optional[str]) -> bool:
+    """Whether ``path`` names a JAX-written msgpack checkpoint."""
+    return bool(path) and str(path).endswith(MSGPACK_SUFFIX)
+
+
+def _load_msgpack(path: str, verify: bool) -> Optional[Dict[str, Any]]:
+    """A JAX msgpack checkpoint, checked against its sidecar's sha256 when
+    there is one (without one, only decoding checks it, as in JAX)."""
+    from distributed_machine_learning_tpu_torch.serve import _msgpack
+
+    backend, p = get_storage(path)
+    data = backend.read_bytes(p)
+    if data is None:
+        return None
+    if verify:
+        raw = backend.read_bytes(p + MSGPACK_MANIFEST_SUFFIX)
+        expected = None
+        if raw is not None:
+            try:
+                expected = json.loads(raw).get("sha256")
+            except ValueError:
+                expected = None
+        if expected is not None and (
+                hashlib.sha256(data).hexdigest() != expected):
+            raise CheckpointCorruptionError(
+                f"checksum mismatch for {path} ({len(data)} bytes on "
+                f"storage)")
+    try:
+        return _msgpack.unpackb(data)
+    except (ValueError, TypeError, KeyError, UnicodeDecodeError,
+            struct_error) as exc:
+        raise CheckpointCorruptionError(
+            f"undecodable checkpoint at {path}: {exc!r}") from exc
+
+
 def load_checkpoint(path: Optional[str],
                     verify: bool = True) -> Optional[Dict[str, Any]]:
-    """Decode the checkpoint at ``path`` (its index); None when there is
-    none.  With ``verify`` the sha256 of the tensor bytes is checked first.
-    Damage raises :class:`CheckpointCorruptionError`."""
+    """Decode the checkpoint at ``path`` (its index, or a JAX msgpack
+    file); None when there is none.  With ``verify`` the sha256 of the
+    bytes is checked first.  Damage raises
+    :class:`CheckpointCorruptionError`."""
     if not path:
         return None
+    if is_flax_checkpoint(path):
+        return _load_msgpack(path, verify)
     backend, p = get_storage(path)
     raw = backend.read_bytes(p)
     if raw is None:
@@ -229,8 +283,10 @@ def load_checkpoint(path: Optional[str],
 
 
 def step_of_path(path: str) -> int:
-    """The step encoded in a checkpoint path (0 if it names none)."""
-    m = _CKPT_RE.match(posixpath.basename(str(path).rstrip("/")))
+    """The step encoded in a checkpoint path of either package (0 if it
+    names none)."""
+    base = posixpath.basename(str(path).rstrip("/"))
+    m = _CKPT_RE.match(base) or _MSGPACK_RE.match(base)
     return int(m.group(1)) if m else 0
 
 
@@ -241,15 +297,24 @@ def checkpoint_path(directory: str, iteration: int) -> str:
 
 
 def list_checkpoints(directory: str) -> List[Tuple[int, str]]:
-    """Sorted ``(step, index_path)`` of every checkpoint under
-    ``directory``."""
+    """Sorted ``(step, path)`` of every checkpoint under ``directory``:
+    the port's indexes and the JAX package's msgpack files (at one step,
+    the msgpack file sorts first)."""
     backend, d = get_storage(directory)
     out = []
     for name in backend.listdir(d):
-        m = _CKPT_RE.match(name)
+        m = _CKPT_RE.match(name) or _MSGPACK_RE.match(name)
         if m:
             out.append((int(m.group(1)), backend.join(d, name)))
-    return sorted(out)
+    return sorted(out, key=lambda e: (e[0], not is_flax_checkpoint(e[1])))
+
+
+def sharded_generations(directory: str) -> List[str]:
+    """The JAX package's sharded generation directories under
+    ``directory`` (``gen_NNNNNN``), which the port does not read."""
+    backend, d = get_storage(directory)
+    return sorted(backend.join(d, n) for n in backend.listdir(d)
+                  if GEN_RE.match(n))
 
 
 def find_latest_checkpoint(directory: str) -> Tuple[Optional[str], int]:
@@ -327,6 +392,8 @@ def prune_checkpoints(directory: str, keep: int, protect=None,
             continue
         # Index first: a reader never sees an index whose bytes are gone.
         backend.delete(full)
-        backend.delete(tensors_path_for(full))
+        backend.delete(full + MSGPACK_MANIFEST_SUFFIX
+                       if is_flax_checkpoint(full)
+                       else tensors_path_for(full))
         deleted += 1
     return deleted

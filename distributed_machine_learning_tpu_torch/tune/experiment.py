@@ -9,11 +9,12 @@ directory is greppable and survives the driver.
 Port of ``distributed_machine_learning_tpu/tune/experiment.py``: the same
 on-disk layout (``params.json``, ``result.jsonl``, ``experiment_state.json``
 per experiment root), so either package's ``ExperimentAnalysis`` reads the
-other's experiments; checkpoints are the port's pickle-free format
-(``tune/checkpoint.py``).  ``best_model`` returns one ``nn.Module`` with
-the newest checkpoint's parameters loaded (for a ``run_vectorized``
-experiment, each trial's final parameters).  ``export_bundle`` is not
-ported yet (ROADMAP.md A3a).
+other's experiments; the port writes its pickle-free checkpoints and reads
+the JAX package's msgpack ones too (``tune/checkpoint.py``).
+``best_model`` returns one ``nn.Module`` of any ported family with the
+newest checkpoint's parameters loaded (for a ``run_vectorized``
+experiment, each trial's final parameters), and ``export_bundle`` freezes
+the best trial into a servable bundle (``serve/export.py``).
 """
 
 from __future__ import annotations
@@ -246,16 +247,20 @@ class ExperimentAnalysis:
     def best_model(self):
         """Reconstruct the winning model: one ``nn.Module`` built from the
         best trial's config, its parameters loaded from the trial's newest
-        checkpoint (on the CPU, in evaluation mode).
+        checkpoint, the port's or a JAX-written one (on the CPU, in
+        evaluation mode).
 
-        The port's ``build_model`` needs the width of an input row; it is
-        read from the checkpoint's input projection (``[d_model,
-        features]``).  The deployment end of the HPO loop: sweep, pick,
-        reload, predict."""
-        import torch
-
+        The port's ``build_model`` needs the width the first layer reads;
+        it is read from the checkpoint's params (``input_features_of``).
+        The deployment end of the HPO loop: sweep, pick, reload, predict."""
         from distributed_machine_learning_tpu_torch.models import build_model
+        from distributed_machine_learning_tpu_torch.models.convert import (
+            from_flax_params,
+            input_features_of,
+            to_flax_params,
+        )
         from distributed_machine_learning_tpu_torch.tune.checkpoint import (
+            is_flax_checkpoint,
             load_checkpoint,
         )
 
@@ -269,17 +274,20 @@ class ExperimentAnalysis:
                 f"(the built-in trainables checkpoint each epoch by default)"
             )
         params = ckpt["params"]
-        proj = params.get("input_projection.weight")
-        if proj is None:
-            raise ValueError(
-                f"checkpoint {path} has no input_projection.weight to read "
-                f"the feature count from"
-            )
-        model = build_model(trial.config, int(proj.shape[-1]))
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(params[name])
+        if not is_flax_checkpoint(path):
+            params = to_flax_params(params)
+        model = build_model(trial.config, input_features_of(params))
+        model.load_state_dict(from_flax_params(params))
         return model.eval()
+
+    def export_bundle(self, out_dir: str, **kwargs) -> str:
+        """Freeze the best trial (or ``trial_id=``) into a servable bundle
+        at ``out_dir`` — see ``serve.export.export_bundle``."""
+        from distributed_machine_learning_tpu_torch.serve.export import (
+            export_bundle,
+        )
+
+        return export_bundle(self, out_dir, **kwargs)
 
     def dataframe(self):
         """Last-result-per-trial table (pandas if available, else list of dicts)."""

@@ -61,8 +61,7 @@ _OBJECTIVE_WEIGHTS = {
     "quality_latency": (1.0, 0.0),
     "quality_latency_params": (1.0, 1.0),
     # Post-quantization selection: the vectorized runner re-scores every
-    # surviving row int8-quantized at sweep end (quant/, not ported:
-    # run_vectorized refuses it, ROADMAP.md A8).
+    # surviving row int8-quantized at sweep end (quant/).
     "quality_after_quant": (0.0, 0.0),
 }
 

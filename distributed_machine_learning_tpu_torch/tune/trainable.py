@@ -40,6 +40,7 @@ from distributed_machine_learning_tpu_torch.models import (
     build_model,
     compute_dtype_of,
     init_parameters,
+    input_width,
 )
 from distributed_machine_learning_tpu_torch.models.convert import (
     flax_leaf_axes,
@@ -133,7 +134,7 @@ def train_regressor(
     clipping = float(config.get("gradient_clipping", 0.0))
 
     generators = init_generators_for(seed, device)
-    model = build_model(config, train_data.num_features)
+    model = build_model(config, input_width(config, train_data.x.shape[1:]))
     init_parameters(model, generators["params"]).to(device)
     params = dict(model.named_parameters())
     if injected:

@@ -77,9 +77,16 @@ boundary path (``pbt.mode_fallbacks``).  The JAX package's msgpack
 
 Refused by name, each with the ROADMAP.md item that will lift it:
 ``checkpoint_format="sharded"`` (A7), more than one device (A9),
-``progress_deadline_s``/``progress_grace_s`` (A10), a
-``compile_cache_dir`` path and PBT's ``objective="quality_after_quant"``
-(A8, ``quant/``).
+``progress_deadline_s``/``progress_grace_s`` (A10) and a
+``compile_cache_dir`` path (A8).
+
+Under PBT's ``objective="quality_after_quant"`` the generations rank on
+quality alone; after the last one every live row is int8 fake-quantized
+(``quant.fake_quant_population``, per row and flax output channel, as
+its own export would quantize it) and re-scored through the population
+eval, and one record per live trial carries ``quant_mape`` and
+``pbt_objective`` (``quant_evals`` counts the passes), as in the JAX
+runner.
 """
 
 from __future__ import annotations
@@ -100,7 +107,9 @@ from distributed_machine_learning_tpu_torch.models import (
     build_model,
     compute_dtype_of,
     init_parameters,
+    input_width,
 )
+from distributed_machine_learning_tpu_torch.models.convert import flax_axes
 from distributed_machine_learning_tpu_torch.ops import flash_attention
 from distributed_machine_learning_tpu_torch.ops.losses import get_loss
 from distributed_machine_learning_tpu_torch.ops.optimizers import (
@@ -234,7 +243,7 @@ class _GroupProgram:
         self.loss_name = str(cfg.get("loss_function", "mse"))
         self.num_epochs = int(cfg.get("num_epochs", 20))
         self.compute_dtype = compute_dtype_of(cfg) or torch.float32
-        self.num_features = train_data.num_features
+        self.num_features = input_width(cfg, train_data.x.shape[1:])
         self.data = data = stage_data(
             train_data, val_data, int(cfg.get("batch_size", 32)),
             self.compute_dtype, device)
@@ -986,12 +995,6 @@ def _resolve_pbt_mode(pbt, pbt_mode: str, mode: str, stop
     where it is forced."""
     if pbt is None:
         return False, None, {}
-    if pbt.quant_aware:
-        raise NotImplementedError(
-            "PopulationBasedTraining(objective='quality_after_quant') needs "
-            "the int8 re-scoring of quant/, which is not ported yet; see "
-            "ROADMAP.md A8"
-        )
     if pbt.objective_weights != (0.0, 0.0) and mode != "min":
         raise ValueError(
             "PopulationBasedTraining(objective=...) scalarizes "
@@ -1525,6 +1528,10 @@ def _run_population(
                 and epoch0 // ckpt_every > (epoch0 - chunk) // ckpt_every):
             save_population(epoch0)
 
+    if pbt is not None and pbt.quant_aware:
+        _quant_rescore(program, state, batch, rows, active, epoch0 - 1,
+                       store, safe_cb, counters)
+
     now = time.time()
     for i, r in enumerate(rows):
         if active[r]:
@@ -1539,6 +1546,60 @@ def _run_population(
             )
             safe_cb("on_trial_complete", trial)
     return row_epochs, exec_total_s, compactions
+
+
+def _fake_quant_rows(params: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Every row of a stacked population int8 fake-quantized in the flax
+    layout (per row and flax output channel: what each row's own int8
+    export would serve), back in the port layout on the same device."""
+    from distributed_machine_learning_tpu_torch.quant import (
+        fake_quant_population,
+    )
+
+    out = {}
+    for key, leaf in params.items():
+        arr = leaf.detach().cpu().numpy()
+        axes = flax_axes(key, arr.ndim - 1)
+        perm = None if axes is None else (0, *(a + 1 for a in axes))
+        flax = arr if perm is None else arr.transpose(perm)
+        q = fake_quant_population({"leaf": flax})["leaf"]
+        if perm is not None:
+            q = q.transpose(np.argsort(perm))
+        out[key] = torch.from_numpy(np.ascontiguousarray(q)).to(leaf.device)
+    return out
+
+
+def _quant_rescore(program, state, batch, rows, active, epoch: int, store,
+                   safe_cb, counters) -> None:
+    """``quality_after_quant``'s final pass: every live row re-scored on
+    the validation split with its int8 fake-quantized weights, one record
+    per live trial (``quant_mape`` = ``pbt_objective``)."""
+    d = program.data
+    sums = program._eval(_fake_quant_rows(state.params), d.x_val, d.y_val,
+                         d.val_mask)
+    _, metrics = program.read_epochs(torch.zeros_like(sums[:, :1]),
+                                     sums[:, None, :])
+    counters["quant_evals"] = counters.get("quant_evals", 0) + 1
+    now = time.time()
+    for i, r in enumerate(rows):
+        if r < 0 or not active[r]:
+            continue
+        trial = batch[r]
+        q_mape = float(metrics["validation_mape"][i, 0])
+        record = {
+            "epoch": epoch,
+            "training_iteration": trial.reports_since_restart,
+            "trial_id": trial.trial_id,
+            "timestamp": now,
+            "time_total_s": now - trial.started_at,
+            "quant_precision": "int8",
+            "quant_mape": q_mape,
+            "pbt_objective": q_mape,
+        }
+        trial.results.append(record)
+        store.append_result(trial, record)
+        safe_cb("on_trial_result", trial, record)
 
 
 def _boundary_generation(program, state, batch, rows, active, lrs, wds, pbt,

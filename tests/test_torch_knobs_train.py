@@ -298,7 +298,38 @@ def test_remat_reruns_each_flash_forward_in_the_backward(policy,
     assert calls == {"fwd": 2, "dkdv": 2, "dq": 2}
     calls.update(fwd=0, dkdv=0, dq=0)
     _step(dict(REMAT_MODEL, remat=True, remat_policy=policy))
-    assert calls == {"fwd": 4, "dkdv": 2, "dq": 2}
+    # everything_saveable keeps every residual, as in JAX: no rerun.
+    reruns = 1 if policy == "everything_saveable" else 2
+    assert calls == {"fwd": 2 * reruns, "dkdv": 2, "dq": 2}
+
+
+def test_everything_saveable_runs_one_plain_forward_per_layer(monkeypatch):
+    """Fault C1's repair: ``everything_saveable`` takes no checkpoint, so
+    each layer's flash forward runs once and the step equals remat off's
+    bit for bit (dropout on)."""
+    import torch.utils.checkpoint as tuc
+
+    loss, grads, gen_state = _step(REMAT_MODEL)
+    fwd = [0]
+    plain = fa.flash_attention_reference
+
+    def counted(*args, **kwargs):
+        fwd[0] += 1
+        return plain(*args, **kwargs)
+
+    def no_checkpoint(*args, **kwargs):
+        raise AssertionError("everything_saveable took a checkpoint")
+
+    monkeypatch.setattr(fa, "flash_attention_reference", counted)
+    monkeypatch.setattr(layers, "checkpoint", no_checkpoint)
+    monkeypatch.setattr(tuc, "checkpoint", no_checkpoint)
+    s_loss, s_grads, s_gen_state = _step(
+        dict(REMAT_MODEL, remat=True, remat_policy="everything_saveable"))
+    assert fwd[0] == REMAT_MODEL["num_layers"]
+    assert torch.equal(s_loss, loss)
+    for a, b in zip(s_grads, grads):
+        assert torch.equal(a, b)
+    assert torch.equal(s_gen_state, gen_state)
 
 
 def test_unknown_remat_policy_raises_the_jax_wording():

@@ -105,8 +105,11 @@ def test_msgpack_round_trip_matches_flax_bytes():
 def test_msgpack_decodes_flax_bfloat16_leaves_as_exact_float32():
     vals = jnp.asarray([1.5, -2.25, 3e-3, 65504.0], jnp.bfloat16)
     back = _msgpack.unpackb(serialization.to_bytes({"w": vals}))
-    assert back["w"].dtype == np.float32
-    np.testing.assert_array_equal(back["w"], np.asarray(vals, np.float32))
+    # A bf16 leaf stays bf16 (a torch.bfloat16 tensor); its widening to
+    # float32 is exact.
+    assert back["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(back["w"].float().numpy(),
+                                  np.asarray(vals, np.float32))
 
 
 # -- bundles -------------------------------------------------------------------
@@ -317,6 +320,7 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.models",
     "distributed_machine_learning_tpu_torch.models.convert",
     "distributed_machine_learning_tpu_torch.models.layers",
+    "distributed_machine_learning_tpu_torch.models.mlp",
     "distributed_machine_learning_tpu_torch.models.transformer",
     "distributed_machine_learning_tpu_torch.ops.attention",
     "distributed_machine_learning_tpu_torch.ops.flash_attention",
@@ -329,8 +333,15 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.data",
     "distributed_machine_learning_tpu_torch.data.loader",
     "distributed_machine_learning_tpu_torch.data.synthetic",
+    "distributed_machine_learning_tpu_torch.data.features",
     "distributed_machine_learning_tpu_torch.perf.costmodel",
     "distributed_machine_learning_tpu_torch.serve",
+    "distributed_machine_learning_tpu_torch.serve.export",
+    "distributed_machine_learning_tpu_torch.serve.swap",
+    "distributed_machine_learning_tpu_torch.quant",
+    "distributed_machine_learning_tpu_torch.quant.core",
+    "distributed_machine_learning_tpu_torch.quant.calibrate",
+    "distributed_machine_learning_tpu_torch.quant.api",
     "distributed_machine_learning_tpu_torch.tune",
     "distributed_machine_learning_tpu_torch.tune.session",
     "distributed_machine_learning_tpu_torch.tune.trainable",
@@ -352,7 +363,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', "
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'msgpack', "
         "'distributed_machine_learning_tpu'))\n"
         "print(bad)\n"
         "assert not bad, bad\n"

@@ -526,13 +526,17 @@ def test_unported_schedulers_configs_and_a_missing_card_raise(tmp_path,
     train, val = dummy_regression_data(**DATA)
     kwargs = dict(train_data=train, val_data=val, metric="validation_mape",
                   storage_path=str(tmp_path), verbose=0)
+    # quality_after_quant is no longer refused: the sweep ends with one
+    # int8 re-scoring record per live trial.
     pbt = tune.PopulationBasedTraining(
         hyperparam_mutations={"learning_rate": [1e-3, 1e-2]},
         objective="quality_after_quant")
-    with pytest.raises(NotImplementedError,
-                       match="quality_after_quant.*ROADMAP.md A8$"):
-        tune.run_vectorized(_tiny_space(), scheduler=pbt, device="cpu",
-                            **kwargs)
+    analysis = tune.run_vectorized(_tiny_space(), scheduler=pbt,
+                                   device="cpu", num_samples=4,
+                                   **dict(kwargs, storage_path=str(
+                                       tmp_path / "quant")))
+    assert all(t.results[-1]["quant_precision"] == "int8"
+               for t in analysis.trials)
     with pytest.raises(NotImplementedError, match="rng_impl='rbg'"):
         tune.run_vectorized(dict(_tiny_space(), rng_impl="rbg"),
                             device="cpu", num_samples=1, **kwargs)

@@ -586,10 +586,14 @@ def test_refusals_name_their_reason(tmp_path):
                   device="cpu", storage_path=str(tmp_path), verbose=0,
                   num_samples=4)
     space = dict(MODEL, learning_rate=tune.loguniform(1e-4, 1e-1))
+    # quality_after_quant is accepted now (it ranks generations on quality
+    # alone, so it keeps the compiled path).
     quant = tune.PopulationBasedTraining(
         hyperparam_mutations=_lr_space(tune), objective="quality_after_quant")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8$"):
-        tune.run_vectorized(space, scheduler=quant, **kwargs)
+    quant.set_experiment(METRIC, "min")
+    compiled, spec, _ = port_vec._resolve_pbt_mode(quant, "auto", "min",
+                                                   None)
+    assert compiled and spec is not None
     pb2 = tune.PB2(hyperparam_mutations=_lr_space(tune))
     with pytest.raises(ValueError, match="compiled.*impossible.*PB2"):
         tune.run_vectorized(space, scheduler=pb2, pbt_mode="compiled",
