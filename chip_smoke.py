@@ -75,21 +75,22 @@ nonzero; nothing is caught and passed over):
    call of a step held against its plain version (``KERNEL_TOL`` f32).
 
 9. pbt — population-based training on the card.  (a) bench.py's
-   ``ours_pbt`` arm uncut (the headline space, 50 x 20, interval 5, PBT
-   seed 3000, sweep seed 2000) through ``run_vectorized`` compiled, then
+   ``ours_pbt`` arm at 10 epochs (the headline space, 50 x 10, interval
+   5, PBT seed 3000, sweep seed 2000) through ``run_vectorized`` compiled, then
    on the boundary path: their generation logs (src, new lr/wd, exploited)
    and donor notes equal bit for bit, ``best_config`` equal, final
    ``validation_mape`` within ``ROW_TOL``, every compiled generation
-   replayed through the host reference step, ``host_dispatches`` 1 and 4,
-   ``generations`` 4 and 3, and no synchronizing CUDA call while the
+   replayed through the host reference step, ``host_dispatches`` 1 and 2,
+   ``generations`` 2 and 1, and no synchronizing CUDA call while the
    compiled generations are enqueued (torch's sync debug mode).  (b) the
-   same space with flash, 16 x 12, interval 3: each f32 kernel once per
+   same space with flash, 16 x 6, interval 3: each f32 kernel once per
    layer per population step and eval block across the exploits, and one
    population step right after an exploit with each folded call within
    ``KERNEL_TOL``.  (c) PB2 on the boundary path as
-   ``examples/pbt_vectorized.py --scheduler pb2`` runs it, 16 x 12.  (d)
-   respawn PBT through ``tune.run`` (the quickstart's data and widths,
-   flash, 6 x 4, interval 2, 4 lease slots on the card): every trial
+   ``examples/pbt_vectorized.py --scheduler pb2`` runs it, at 16 x 6.
+   (d) respawn PBT through ``tune.run`` (the quickstart's widths on 500
+   of its rows, flash, 6 x 4, interval 2, 4 lease slots on the card):
+   every trial
    TERMINATED, requeued trials resumed from a donor's checkpoint with its
    weights bit for bit and reported ``restore_base + 1`` first.
 10. resume — interrupted sweeps resumed, each against an uninterrupted
@@ -109,7 +110,7 @@ nonzero; nothing is caught and passed over):
    (16 x 12, interval 3, compiled, dispatch and checkpoint every
    interval), interrupted after generation 2: the resume stays compiled,
    its generation log and donor notes bit-equal to the uninterrupted
-   run's.  (d) ``tune.run`` at the quickstart's widths with flash (4 x 4,
+   run's.  (d) ``tune.run`` at the quickstart's widths with flash (3 x 4,
    one lease slot) in a child process, SIGKILLed once 6 trial checkpoints
    have landed, then ``tune.run(resume=True)`` in a fresh process: every
    trial TERMINATED, each epoch reported once, each requeued trial's
@@ -297,6 +298,32 @@ nonzero; nothing is caught and passed over):
    generations on ``memory://`` and served over HTTP: every answer within
    2e-4 of the largest entry of the plain forward.  Each line carries the
    card's name and power limit, (a)'s also fsspec's version.
+
+18. out_of_core — training past the card's memory.  (a) the headline
+   population with flash (f32, d_model 64, seq 96), K = 8 for one epoch
+   through ``run_vectorized``, remat off and under each of the five
+   ``remat_policy`` names: records and final parameters bit for bit those
+   of remat off; the f32 flash launches per population step (the forward
+   2 -> 4 under a recomputing policy, 2 under ``everything_saveable``, the
+   backward kernels 2 each); each run's peak bytes.  (b) the flagship
+   (bf16, flash) as a K = 4 population, one epoch of 8 steps, remat off,
+   ``nothing_saveable`` and ``dots_saveable``: final parameters bit for
+   bit those of remat off, one population step of each with every bf16
+   flash call within ``KERNEL_TOL`` of its plain version, each run's peak
+   bytes (``nothing_saveable`` below remat off) and a step's device ms.
+   (c) the flagship through ``train_regressor``, one epoch at batch 64 on
+   8192 + 1024 rows of seq 2048 x 16, resident and then
+   ``input_mode="auto"`` engaging streaming on the card's own budget
+   (chunks of 8 batches, depth 2): final parameters and every metric bit
+   for bit, the bf16 kernels launched in both, the streaming peak within
+   5 % of the resident peak less the staged dataset plus the ring's
+   slabs, and ``check_resident_budget`` past the card's budget raising
+   before any allocation; both step times and their ratio, the overlap
+   efficiency and the waits behind it.  (d) phase tune's widths with
+   flash, 2 trials x 2 epochs streamed through ``tune.run``: a control,
+   a producer crash retried to the control's ``best_config`` (one retry,
+   one crash counted), and a slowed producer whose overlap efficiency
+   drops while the final parameters stay the control's bit for bit.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel measurements, and ``{"ok": true, "device": {...}}``.  The
@@ -2055,22 +2082,29 @@ def phase_vectorized():
 
 # -- phase 9 ----------------------------------------------------------------
 
-# bench.py's ours_pbt arm (:913-995) at FULL: the headline space, 50 rows x
-# 20 epochs, one generation per 5 epochs, its own seeds.
+# bench.py's ours_pbt arm (:913-995): the headline space, 50 rows, one
+# generation per 5 epochs, its own seeds; 10 epochs (cut from 20 so that
+# the whole script, phase out_of_core included, stays inside its time
+# limit).
 PBT_HEADLINE = dict(interval=5, pbt_seed=3000, sweep_seed=2000,
-                    quantile=0.25)
-# By the reference step's arithmetic: 12 of 50 rows exploited in each of
-# the 3 generations that fire (the 4th ends the sweep), 2 keys explored.
-PBT_EXPECT = {"compiled": dict(host_dispatches=1, generations=4),
-              "boundary": dict(host_dispatches=4, generations=3),
-              "exploits": 36, "explores": 72}
-# examples/pbt_sweep.py and pbt_vectorized.py's own counts.
-PBT_FLASH = dict(trials=16, epochs=12, interval=3)
-# The README quickstart's data and widths with flash fixed, 6 x 4 (cut
-# from 8 x 8 so that the whole script, phase baseline included, stays
-# inside its time limit; with 6 trials on 4 slots the last two meet
-# finished donors at their first perturbation).
-PBT_RESPAWN = dict(trials=6, epochs=4, interval=2, slots=4)
+                    quantile=0.25, epochs=10)
+# By the reference step's arithmetic: 12 of 50 rows exploited in the one
+# generation that fires (the 2nd ends the sweep), 2 keys explored.
+PBT_EXPECT = {"compiled": dict(host_dispatches=1, generations=2),
+              "boundary": dict(host_dispatches=2, generations=1),
+              "exploits": 12, "explores": 24}
+# examples/pbt_sweep.py and pbt_vectorized.py's rows and interval, 6
+# epochs (cut from their 12 for the time limit): two generations, one
+# of which fires.
+PBT_FLASH = dict(trials=16, epochs=6, interval=3)
+# The README quickstart's widths with flash fixed, 6 x 4 (cut from 8 x 8
+# so that the whole script, phase baseline included, stays inside its
+# time limit; with 6 trials on 4 slots the last two meet finished donors
+# at their first perturbation), on 500 of its rows (1000 before phase
+# out_of_core came: 12 steps an epoch, not 25, for that phase's time).  On 2 slots
+# no trial is requeued: the scheduler ranks once 4 trials have reported,
+# and by then the first two have finished and cannot donate.
+PBT_RESPAWN = dict(trials=6, epochs=4, interval=2, slots=4, rows=500)
 
 
 def _pbt_mutations(tune, lr_low=1e-4):
@@ -2175,7 +2209,8 @@ def _pbt_headline(tune, train, val, root) -> dict:
             quantile_fraction=PBT_HEADLINE["quantile"],
             seed=PBT_HEADLINE["pbt_seed"])
         runs[mode] = _pbt_sweep(
-            tune, train, val, root, mode, headline_space(tune), pbt,
+            tune, train, val, root, mode,
+            headline_space(tune, num_epochs=PBT_HEADLINE["epochs"]), pbt,
             num_samples=HEADLINE["num_trials"],
             seed=PBT_HEADLINE["sweep_seed"], pbt_mode=pbt_mode)
         logs[mode] = pbt._generation_log
@@ -2230,7 +2265,7 @@ def _pbt_headline(tune, train, val, root) -> dict:
 
 
 def _pbt_flash(tune, train, val, root) -> dict:
-    """(b): the headline space with flash at 16 x 12, interval 3, compiled:
+    """(b): the headline space with flash at 16 x 6, interval 3, compiled:
     every f32 kernel once per layer per population step and eval block
     across the exploit gathers; then one population step right after an
     exploit, each folded call held against its plain version."""
@@ -2312,7 +2347,7 @@ def _pbt_flash(tune, train, val, root) -> dict:
 
 def _pbt_pb2(tune, root) -> dict:
     """(c): PB2 on the boundary path as examples/pbt_vectorized.py
-    --scheduler pb2 runs it, at 16 x 12, interval 3, with its population
+    --scheduler pb2 runs it, at 16 x 6, interval 3, with its population
     checkpoints every interval."""
     from distributed_machine_learning_tpu_torch.data import glucose_like_data
 
@@ -2337,8 +2372,9 @@ def _pbt_pb2(tune, root) -> dict:
 
 
 def _pbt_respawn(tune, root) -> dict:
-    """(d): respawn PBT through ``tune.run`` (README quickstart data and
-    widths, flash fixed, 6 trials x 4 epochs, interval 2, the lr mutated;
+    """(d): respawn PBT through ``tune.run`` (README quickstart widths on
+    500 of its rows, flash fixed, 6 trials x 4 epochs, interval 2, the lr
+    mutated;
     4 lease slots on the card so that a lagger meets donors still
     training).  Every trial TERMINATED with at least one requeue; each
     requeued trial resumed from a donor's checkpoint with its weights bit
@@ -2355,8 +2391,8 @@ def _pbt_respawn(tune, root) -> dict:
         load_checkpoint,
     )
 
-    train, val = dummy_regression_data(num_samples=1000, seq_len=50,
-                                       num_features=10)
+    train, val = dummy_regression_data(num_samples=PBT_RESPAWN["rows"],
+                                       seq_len=50, num_features=10)
     restored: dict = {}
     make_epoch_fn = port_trainable.make_epoch_fn
 
@@ -2445,13 +2481,13 @@ def phase_pbt():
         headline = _pbt_headline(tune, train, val, root)
         for mode, run in headline["runs"].items():
             emit("pbt", sub=f"a_headline_{mode}", card=card,
-                 rows=HEADLINE["num_trials"], epochs=HEADLINE["num_epochs"],
+                 rows=HEADLINE["num_trials"], epochs=PBT_HEADLINE["epochs"],
                  best_validation_mape=run["analysis"].best_result[
                      "validation_mape"], **_pbt_line(run))
         flash = _pbt_flash(tune, train, val, root)
         emit("pbt", sub="b_flash", card=card, rows=PBT_FLASH["trials"],
              epochs=PBT_FLASH["epochs"],
-             cut="16 x 12, interval 3 (examples/pbt_sweep.py's counts)",
+             cut="16 x 6, interval 3 (examples/pbt_sweep.py's 16 x 12)",
              after_exploit=flash["after_exploit"], **_pbt_line(flash))
         pb2 = _pbt_pb2(tune, root)
         emit("pbt", sub="c_pb2", card=card, rows=PBT_FLASH["trials"],
@@ -2467,7 +2503,9 @@ def phase_pbt():
          headline_scores_bit_equal=headline["scores_bit_equal"],
          headline_exploits=headline["exploits"],
          headline_expected_exploits=headline["expected_exploits"],
-         cut=None, total_s=time.monotonic() - t_start)
+         cut="headline 50 x 10 (from 50 x 20), flash and PB2 16 x 6 (from "
+             "16 x 12), respawn on 500 rows (from 1000)",
+         total_s=time.monotonic() - t_start)
     return {"flash_population": flash["launches"],
             "respawn": respawn["launches"]}
 
@@ -2486,11 +2524,12 @@ RESUME_FLASH = dict(trials=8, epochs=6, checkpoint_every=2,
 # interval as dispatch and checkpoint cadence; interrupted on the first
 # record after generation 2.
 RESUME_PBT = dict(trials=16, epochs=12, interval=3, fatal_iteration=7)
-# (d) the quickstart's widths with flash through tune.run, 4 x 4 (8 x 4
-# until the baseline phase was added) on one
+# (d) the quickstart's widths with flash through tune.run, 3 x 4 (8 x 4
+# until the baseline phase was added, 4 x 4 until phase out_of_core
+# was) on one
 # lease slot (two ran 1.9x slower, PERF.md), SIGKILLed once 6 trial
 # checkpoints have landed: trial 0 done or all but done, trial 1 in flight.
-RESUME_RUN = dict(trials=4, epochs=4, slots=1, kill_after=6)
+RESUME_RUN = dict(trials=3, epochs=4, slots=1, kill_after=6)
 
 
 class _Preempted(RuntimeError):
@@ -6089,6 +6128,453 @@ def phase_durable():
     return launches
 
 
+# -- phase 18 ---------------------------------------------------------------
+
+REMAT_POLICY_NAMES = ("nothing_saveable", "everything_saveable",
+                      "dots_saveable", "checkpoint_dots",
+                      "dots_with_no_batch_dims_saveable")
+# (a) the headline population with flash, K = 8 for one epoch, remat off
+# and under each policy name.
+OOC_HEADLINE_TRIALS = 8
+# (b) the flagship as a K = 4 population, one epoch of 8 steps.
+OOC_FLAGSHIP_TRIALS = 4
+OOC_FLAGSHIP_POLICIES = (None, "nothing_saveable", "dots_saveable")
+# (c) 8192 train and 1024 val rows of seq 2048 x 16 (537 + 67 MB staged in
+# bf16), batch 64 (128 steps), chunks of 8 batches, a ring of depth 2;
+# "auto" engages past 0.005 of the card's memory.
+OOC_STREAM = dict(train_rows=8192, val_rows=1024, batch_size=64,
+                  chunk_batches=8, depth=2, engage_fraction=0.005)
+# The streaming peak against the resident peak less the staged dataset
+# plus the ring's depth + 1 slabs: within this share.
+OOC_PEAK_SLACK = 0.05
+# (d) phase tune's widths with flash, 2 trials x 2 epochs, streamed in
+# chunks of 4 batches (6 per epoch): the producer killed before chunk 8
+# (the second epoch's third), or slowed before every chunk.
+OOC_FAULTS = dict(trials=2, epochs=2, chunk_batches=4, crash_at=8,
+                  slow_ms=100.0)
+
+
+def _plain_record(record: dict) -> dict:
+    """A record less its clocks and its memory reading."""
+    return {k: v for k, v in record.items()
+            if k not in ("timestamp", "time_total_s", "time_this_iter_s",
+                         "epoch_time_s", "mfu", "device_bytes_in_use",
+                         "input_mode")}
+
+
+def _final_params(analysis) -> dict:
+    from distributed_machine_learning_tpu_torch.tune.checkpoint import (
+        load_checkpoint,
+    )
+
+    return {t.trial_id: load_checkpoint(t.latest_checkpoint)["params"]
+            for t in analysis.trials}
+
+
+def _sweeps_bit_equal(a, b) -> dict:
+    """Two sweeps' records (less clocks) and final parameters, trial by
+    trial: bit for bit?"""
+    import torch
+
+    ta = sorted(a.trials, key=lambda t: t.trial_id)
+    tb = sorted(b.trials, key=lambda t: t.trial_id)
+    pa, pb = _final_params(a), _final_params(b)
+    return {
+        "records_bit_equal": [t.trial_id for t in ta]
+        == [t.trial_id for t in tb] and all(
+            [_plain_record(r) for r in x.results]
+            == [_plain_record(r) for r in y.results]
+            for x, y in zip(ta, tb)),
+        "params_bit_equal": pa.keys() == pb.keys() and all(
+            torch.equal(pa[t][k], pb[t][k]) for t in pb for k in pb[t]),
+    }
+
+
+def _peak_run(fn):
+    """``fn()``'s result, its wall seconds, and the card's peak bytes
+    allocated during it above what was allocated before it."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def _ooc_headline_remat(tune, root: str) -> dict:
+    """(a): the headline population with flash, K = 8 for one epoch, remat
+    off and under each policy name: records and final parameters bit for
+    bit those of remat off; f32 flash launches per population step
+    (forward 2 -> 4 under a recomputing policy, 2 under
+    ``everything_saveable``; the backward kernels 2 each); peak bytes."""
+    train, val = headline_data()
+    runs = {}
+    for policy in (None, *REMAT_POLICY_NAMES):
+        extra = {} if policy is None else {"remat": True,
+                                           "remat_policy": policy}
+        space = headline_space(tune, num_epochs=1, attention_type="flash",
+                               **extra)
+        (analysis, _w, _s, launches), wall_s, peak = _peak_run(
+            lambda: headline_sweep(tune, train, val, root,
+                                   f"remat_{policy or 'off'}", space=space,
+                                   num_samples=OOC_HEADLINE_TRIALS))
+        runs[policy or "off"] = dict(analysis=analysis, wall_s=wall_s,
+                                     peak_bytes=peak, launches=launches)
+    off = runs["off"]
+    layers_n = 2
+    steps = off["analysis"].trials[0].results[-1]["steps"]
+    eval_blocks = -(-len(val) // 32)
+    out, problems = {}, []
+    for name, run in runs.items():
+        launches = run["launches"]
+        fwd_per_step = (launches["flash_fwd"] - layers_n * eval_blocks) / steps
+        per_step = {"flash_fwd": fwd_per_step,
+                    "flash_bwd_dkdv": launches["flash_bwd_dkdv"] / steps,
+                    "flash_bwd_dq": launches["flash_bwd_dq"] / steps}
+        recomputes = name not in ("off", "everything_saveable")
+        want = {"flash_fwd": layers_n * (2 if recomputes else 1),
+                "flash_bwd_dkdv": layers_n, "flash_bwd_dq": layers_n}
+        same = _sweeps_bit_equal(run["analysis"], off["analysis"])
+        if per_step != want or not all(same.values()):
+            problems.append((name, per_step, want, same))
+        out[name] = {"wall_s": run["wall_s"], "peak_bytes": run["peak_bytes"],
+                     "launches": launches, "launches_per_step": per_step,
+                     **same}
+    if problems:
+        raise AssertionError(f"out_of_core a: {problems}")
+    return {"trials": OOC_HEADLINE_TRIALS, "epochs": 1, "steps": steps,
+            "eval_blocks": eval_blocks, "runs": out}
+
+
+def _ooc_flagship_population(tune, root: str) -> dict:
+    """(b): the flagship as a K = 4 population, one epoch of 8 steps, with
+    remat off, ``nothing_saveable`` and ``dots_saveable``: final
+    parameters bit for bit those of remat off; one population step of
+    each with every bf16 flash call held against its plain version
+    (``_checking``); peak bytes of the epoch and a step's device ms."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+
+    train, val = dummy_regression_data(num_samples=TRAIN_ROWS,
+                                       seq_len=FLAGSHIP["max_seq_length"],
+                                       num_features=FEATURES)
+    runs, problems = {}, []
+    for policy in OOC_FLAGSHIP_POLICIES:
+        extra = {} if policy is None else {"remat": True,
+                                           "remat_policy": policy}
+        space = dict(TRAIN, num_epochs=1, seed=tune.randint(0, 1000),
+                     learning_rate=tune.loguniform(1e-4, 1e-3),
+                     weight_decay=0.0, **extra)
+        name = policy or "off"
+
+        def sweep():
+            counters = _reset_counters()
+            analysis = tune.run_vectorized(
+                space, train_data=train, val_data=val,
+                metric="validation_mape", mode="min",
+                num_samples=OOC_FLAGSHIP_TRIALS,
+                max_batch_trials=OOC_FLAGSHIP_TRIALS,
+                storage_path=root, name=f"flagship_{name}", seed=5,
+                verbose=0)
+            return analysis, {c.name: c.count for c in counters}
+
+        (analysis, launches), wall_s, peak = _peak_run(sweep)
+        config = dict(analysis.trials[0].config)
+        step_fn, _, _ = population_step(tune, train, val, config,
+                                        OOC_FLAGSHIP_TRIALS)
+        step_ms = cuda_ms(lambda: step_fn(), iters=3, warmup=1)
+        record = {}
+        saved = fa.flash_forward, fa.flash_backward
+        fa.flash_forward, fa.flash_backward = _checking(record)
+        try:
+            float(step_fn().sum())
+        finally:
+            fa.flash_forward, fa.flash_backward = saved
+        del step_fn
+        runs[name] = {"analysis": analysis, "wall_s": wall_s,
+                      "peak_bytes": peak, "step_device_ms": step_ms,
+                      "launches": launches, "checked": record}
+    off = runs["off"]
+    tol = KERNEL_TOL["bfloat16"]
+    out = {}
+    for name, run in runs.items():
+        same = _sweeps_bit_equal(run["analysis"], off["analysis"])
+        worst = max(run["checked"].get(n, float("inf"))
+                    for n in ("out", "dq", "dk", "dv"))
+        if not all(same.values()) or not worst <= tol \
+                or run["checked"].get("calls") != FLAGSHIP["num_layers"]:
+            problems.append((name, same, run["checked"]))
+        out[name] = {k: v for k, v in run.items() if k != "analysis"}
+        out[name].update(same)
+    if not out["nothing_saveable"]["peak_bytes"] < out["off"]["peak_bytes"]:
+        problems.append(("peak", {k: v["peak_bytes"] for k, v in out.items()}))
+    if problems:
+        raise AssertionError(f"out_of_core b: {problems} (tol {tol})")
+    return {"trials": OOC_FLAGSHIP_TRIALS, "epochs": 1,
+            "steps": off["analysis"].trials[0].results[-1]["steps"],
+            "tol": tol, "runs": out}
+
+
+def _ooc_streaming() -> dict:
+    """(c): the flagship through ``train_regressor`` for one epoch at batch
+    64 on 8192 + 1024 rows of seq 2048, resident and then ``"auto"``
+    engaging streaming on the card's real budget: final parameters and
+    every reported metric bit for bit, the bf16 kernels launched in both;
+    step times, the overlap efficiency with the waits behind it, both
+    peaks against the ring's bound; ``check_resident_budget`` past the
+    budget raising before any allocation."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch import tune
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+        pipeline,
+    )
+
+    spec = OOC_STREAM
+    rows = spec["train_rows"] + spec["val_rows"]
+    t0 = time.monotonic()
+    train, val = dummy_regression_data(
+        num_samples=rows, seq_len=FLAGSHIP["max_seq_length"],
+        num_features=FEATURES, val_fraction=spec["val_rows"] / rows)
+    data_s = time.monotonic() - t0
+    if (len(train), len(val)) != (spec["train_rows"], spec["val_rows"]):
+        raise AssertionError(f"out_of_core c: {len(train)} + {len(val)} rows")
+    device = torch.device("cuda", 0)
+    staged = pipeline.staged_nbytes(train, val, torch.bfloat16)
+    budget = pipeline.device_budget_bytes(device)
+    before = torch.cuda.memory_allocated()
+    refused = None
+    try:
+        pipeline.check_resident_budget(budget + 1, device)
+    except pipeline.ResidentOverBudgetError as exc:
+        refused = str(exc)
+    refused_alloc = torch.cuda.memory_allocated() - before
+    trainable = tune.with_parameters(tune.train_regressor, train_data=train,
+                                     val_data=val)
+    config = dict(TRAIN, num_epochs=1, batch_size=spec["batch_size"])
+
+    def run(extra):
+        records, params = [], []
+        counters = _reset_counters()
+        base = pipeline.get_host_input_counters().snapshot()
+
+        def report(metrics, checkpoint):
+            records.append(metrics)
+            params.append(checkpoint["params"])
+
+        def go():
+            with tune.session.standalone(devices=[device], report_fn=report):
+                trainable(dict(config, **extra))
+
+        _, wall_s, peak = _peak_run(go)
+        return {"record": records[-1], "params": params[-1],
+                "launches": {c.name: c.count for c in counters},
+                "host_input": pipeline.get_host_input_counters().delta_since(
+                    base),
+                "wall_s": wall_s, "peak_bytes": peak}
+
+    resident = run({"input_mode": "resident"})
+    streaming = run({"input_mode": "auto",
+                     "streaming_engage_fraction": spec["engage_fraction"],
+                     "streaming_chunk_batches": spec["chunk_batches"],
+                     "streaming_prefetch_depth": spec["depth"]})
+    steps = resident["record"]["steps"]
+    slab = spec["chunk_batches"] * spec["batch_size"] * (
+        FLAGSHIP["max_seq_length"] * FEATURES * 2 + 4)
+    bound = (resident["peak_bytes"] - staged + (spec["depth"] + 1) * slab)
+    hi = streaming["host_input"]
+    # Validation streams too only past the engage fraction (not here on
+    # the card: 67 MB of its 80 GB).
+    val_blocks = -(-spec["val_rows"] // spec["batch_size"])
+    val_streams = (pipeline.staged_nbytes(None, val, torch.bfloat16)
+                   > spec["engage_fraction"] * budget)
+    chunks = -(-steps // spec["chunk_batches"]) + (
+        -(-val_blocks // spec["chunk_batches"]) if val_streams else 0)
+    stream_epoch_s = (streaming["record"]["epoch_time_s"]
+                      + hi["consumer_wait_s"])
+    checks = {
+        "refused_before_allocating": refused is not None
+        and refused_alloc == 0,
+        "input_mode_streaming": streaming["record"].get("input_mode")
+        == "streaming" and "input_mode" not in resident["record"],
+        "metrics_bit_equal": _plain_record(streaming["record"])
+        == _plain_record(resident["record"]),
+        "params_bit_equal": all(
+            torch.equal(streaming["params"][k], v)
+            for k, v in resident["params"].items()),
+        "kernels_in_both": min(resident["launches"].values()) > 0
+        and streaming["launches"] == resident["launches"],
+        "peak_within_ring_bound": streaming["peak_bytes"]
+        <= bound * (1 + OOC_PEAK_SLACK),
+        "chunks_staged": hi["chunks_staged"] == chunks,
+    }
+    if not all(checks.values()):
+        raise AssertionError(
+            f"out_of_core c: {checks}; resident {resident['record']}, "
+            f"{resident['launches']}; streaming {streaming['record']}, "
+            f"{streaming['launches']}; peaks {resident['peak_bytes']} "
+            f"{streaming['peak_bytes']} bound {bound}; {hi}")
+    return {
+        "checks": checks, "data_s": data_s, "staged_bytes": staged,
+        "budget_bytes": budget, "slab_bytes": slab, "steps": steps,
+        "resident": {"epoch_s": resident["record"]["epoch_time_s"],
+                     "step_ms": resident["record"]["epoch_time_s"] / steps
+                     * 1e3, "wall_s": resident["wall_s"],
+                     "peak_bytes": resident["peak_bytes"],
+                     "launches": resident["launches"]},
+        "streaming": {"epoch_s": stream_epoch_s,
+                      "step_ms": stream_epoch_s / steps * 1e3,
+                      "wall_s": streaming["wall_s"],
+                      "peak_bytes": streaming["peak_bytes"],
+                      "launches": streaming["launches"]},
+        "step_rate_ratio": resident["record"]["epoch_time_s"]
+        / stream_epoch_s,
+        "peak_bound_bytes": bound,
+        "overlap_efficiency": pipeline.overlap_efficiency(hi),
+        "host_input": hi,
+    }
+
+
+def _ooc_producer_faults(tune, root: str) -> dict:
+    """(d): phase tune's widths with flash, 2 trials x 2 epochs streamed
+    through ``tune.run`` (thread executor, one lease slot): a control, a
+    run whose producer is killed before chunk 8 (retried from its
+    checkpoint: every trial TERMINATED, the control's ``best_config``, one
+    retry and one crash counted) and a run whose producer sleeps before
+    every chunk (the overlap efficiency below the control's, final
+    parameters bit for bit the control's)."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch import chaos
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+
+    spec = OOC_FAULTS
+    train, val = dummy_regression_data(num_samples=1000, seq_len=50,
+                                       num_features=10)
+    space = dict(quickstart_space(tune, spec["epochs"]),
+                 attention_type="flash",
+                 streaming_chunk_batches=spec["chunk_batches"])
+
+    def sweep(name, plan=None):
+        counters = _reset_counters()
+        t0 = time.monotonic()
+        if plan is not None:
+            chaos.activate(plan)
+        try:
+            analysis = tune.run(
+                tune.with_parameters(tune.train_regressor, train_data=train,
+                                     val_data=val),
+                space, metric="validation_mape", mode="min",
+                num_samples=spec["trials"], input_mode="streaming",
+                max_failures=1, seed=11, devices=[torch.device("cuda", 0)],
+                storage_path=root, name=name, verbose=0)
+        finally:
+            if plan is not None:
+                chaos.deactivate()
+        wall_s = time.monotonic() - t0
+        state = _experiment_state(analysis.root)
+        bad = {t.trial_id: (t.status.value, (t.error or "")[-400:])
+               for t in analysis.trials if t.status.value != "TERMINATED"}
+        if bad or len(analysis.trials) != spec["trials"]:
+            raise AssertionError(f"out_of_core d {name}: {bad}")
+        return {"analysis": analysis, "wall_s": wall_s,
+                "launches": {c.name: c.count for c in counters},
+                "host_input": state.get("host_input"),
+                "faults": state.get("injected_faults"),
+                "retries": sum(t.num_failures for t in analysis.trials)}
+
+    control = sweep("d_control")
+    crash = sweep("d_crash", chaos.FaultPlan(
+        producer_crash_at=spec["crash_at"]))
+    slow = sweep("d_slow", chaos.FaultPlan(slow_producer_ms=spec["slow_ms"]))
+    eff = {k: v["host_input"]["overlap_efficiency"]
+           for k, v in (("control", control), ("crash", crash),
+                        ("slow", slow))}
+    crash_same = _sweeps_bit_equal(crash["analysis"], control["analysis"])
+    slow_same = _sweeps_bit_equal(slow["analysis"], control["analysis"])
+    checks = {
+        "crash_best_config": crash["analysis"].best_config
+        == control["analysis"].best_config,
+        "crash_one_retry": crash["retries"] == 1
+        and crash["faults"] == {"producer_crashes": 1}
+        and crash["host_input"]["producer_crashes"] == 1,
+        "slow_params_bit_equal": slow_same["params_bit_equal"],
+        "slow_overlap_degraded": eff["slow"] < eff["control"],
+        "slow_fired": (slow["faults"] or {}).get("producer_slowdowns", 0)
+        >= spec["trials"] * spec["epochs"],
+        "flash_launched": min(control["launches"].values()) > 0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"out_of_core d: {checks}; overlap {eff}; "
+                             f"crash {crash['faults']} {crash['retries']} "
+                             f"{crash['host_input']}; slow {slow['faults']}")
+    return {"checks": checks, "overlap_efficiency": eff,
+            "crash_params_bit_equal": crash_same["params_bit_equal"],
+            "crash_records_bit_equal": crash_same["records_bit_equal"],
+            "slow_records_bit_equal": slow_same["records_bit_equal"],
+            "best_config": control["analysis"].best_config,
+            **{f"{k}_wall_s": v["wall_s"] for k, v in (
+                ("control", control), ("crash", crash), ("slow", slow))},
+            "host_input": {k: v["host_input"] for k, v in (
+                ("control", control), ("crash", crash), ("slow", slow))},
+            "launches": {"control": control["launches"],
+                         "crash": crash["launches"],
+                         "slow": slow["launches"]}}
+
+
+def phase_out_of_core():
+    """(a) remat in the headline population under every policy name, (b)
+    in a flagship population, (c) the flagship streamed against resident,
+    (d) producer faults through ``tune.run``.  Returns each run's flash
+    launches."""
+    from distributed_machine_learning_tpu_torch import tune
+
+    t_start = time.monotonic()
+    card = smi_line()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        a = _ooc_headline_remat(tune, root)
+        for name, run in a["runs"].items():
+            launches[f"a_headline_{name}"] = run["launches"]
+        emit("out_of_core", sub="a_headline_remat", card=card, **a,
+             total_s=time.monotonic() - t0)
+        t0 = time.monotonic()
+        b = _ooc_flagship_population(tune, root)
+        for name, run in b["runs"].items():
+            launches[f"b_flagship_{name}"] = run["launches"]
+        emit("out_of_core", sub="b_flagship_remat", card=card, **b,
+             total_s=time.monotonic() - t0)
+        t0 = time.monotonic()
+        c = _ooc_streaming()
+        launches["c_resident"] = c["resident"]["launches"]
+        launches["c_streaming"] = c["streaming"]["launches"]
+        emit("out_of_core", sub="c_streaming", card=card, **c,
+             total_s=time.monotonic() - t0)
+        t0 = time.monotonic()
+        d = _ooc_producer_faults(tune, root)
+        for name, counts in d["launches"].items():
+            launches[f"d_{name}"] = counts
+        emit("out_of_core", sub="d_producer_faults", card=card, **d,
+             total_s=time.monotonic() - t0)
+    emit("out_of_core", card=card, total_s=time.monotonic() - t_start)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6118,6 +6604,7 @@ def main() -> int:
     launches_baseline = phase_baseline()
     phase_resnet_data()
     launches_durable = phase_durable()
+    launches_ooc = phase_out_of_core()
 
     sources = {
         "flash_fwd": ("flash_fwd.cu", "pallas_attention.py:53"),
@@ -6187,6 +6674,13 @@ def main() -> int:
             # flash in the headline's space: zero).
             "launches_durable": {k: v[name]
                                  for k, v in launches_durable.items()},
+            # The out_of_core phase: the headline flash population (f32)
+            # with remat off and under each policy name, the flagship
+            # population (bf16) under three, the flagship trained
+            # resident and streamed (bf16), and the streamed quickstart
+            # sweeps under producer faults (f32).
+            "launches_out_of_core": {k: v[name]
+                                     for k, v in launches_ooc.items()},
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "tflops")},

@@ -1,6 +1,6 @@
-"""Deterministic fault injection: storage faults and head kills.
+"""Deterministic fault injection: storage, head and producer faults.
 
-Port of the storage and head-crash faults of
+Port of the storage, head-crash and streaming-input faults of
 ``distributed_machine_learning_tpu/chaos.py`` and of its process-wide
 activation (``activate``, ``deactivate``, ``active_plan``, ``active``,
 ``DML_CHAOS_PLAN``).
@@ -52,9 +52,22 @@ Both fire once, and only on head incarnation 1: the resumed head
 activates the same plan from ``DML_CHAOS_PLAN`` and must pass the same
 decision unharmed.
 
+**Streaming input** — the prefetch ring's producer thread
+(``data/pipeline.py``) polls the active plan before it stages each chunk:
+
+* ``slow_producer_ms`` — the producer sleeps this long before every
+  chunk (slow storage, a starved gather): the overlap efficiency drops,
+  the parameters do not change.  ``slow_producer_match`` — ring-name
+  substrings (rings are named ``stream-<trial_id>``): only matching
+  producers sleep.
+* ``producer_crash_at`` — a chunk index (0-based, across the trial's
+  whole chunk stream); the producer raises
+  :class:`InjectedProducerCrash` before staging it.  Fires once: the
+  retried incarnation's producer passes the same index.
+
 Every injection increments a named counter (:meth:`FaultPlan.snapshot`).
 The JAX plan's other faults (trial crashes, process and replica kills,
-hot swaps, hangs, partitions, drift, producer and export faults) and its
+hot swaps, hangs, partitions, drift and export faults) and its
 ``injected_faults`` metrics family belong to the chaos and observability
 planes, ROADMAP.md A10: any of those ``FaultPlan`` arguments raises
 ``NotImplementedError`` naming that item.
@@ -87,6 +100,14 @@ class InjectedIOError(InjectedFault, IOError):
     thing."""
 
 
+class InjectedProducerCrash(InjectedFault, RuntimeError):
+    """The host-input producer thread killed at a scheduled chunk index
+    (``data/pipeline.py``).  Raised inside the producer; the prefetch ring
+    raises it again on the consumer (trial) thread, so it takes the
+    ordinary trial error path: the retry budget, the checkpoint restore,
+    the device's release."""
+
+
 class InjectedCommitKill(InjectedFault, RuntimeError):
     """A process killed between a sharded checkpoint's chunk writes and its
     COMMIT marker.  Deliberately NOT an OSError: the storage retry policy
@@ -110,8 +131,8 @@ def _hash_fraction(*parts) -> float:
 
 
 class FaultPlan:
-    """A seeded schedule of storage faults and head kills (see the module
-    docstring)."""
+    """A seeded schedule of storage faults, head kills and producer faults
+    (see the module docstring)."""
 
     def __init__(
         self,
@@ -130,6 +151,9 @@ class FaultPlan:
         kill_head_during_journal_write: Optional[int] = None,
         stall_storage_paths: Sequence[str] = (),
         stall_storage_ms: float = 0.0,
+        slow_producer_ms: float = 0.0,
+        slow_producer_match: Sequence[str] = (),
+        producer_crash_at: Optional[int] = None,
         **unported,
     ):
         if unported:
@@ -156,6 +180,13 @@ class FaultPlan:
         )
         self._stall_pending: List[str] = list(stall_storage_paths)
         self.stall_storage_ms = float(stall_storage_ms)
+        self.slow_producer_ms = float(slow_producer_ms)
+        self.slow_producer_match = tuple(
+            str(s) for s in slow_producer_match
+        )
+        self._producer_crash_at = (
+            int(producer_crash_at) if producer_crash_at is not None else None
+        )
         self._lock = threading.Lock()
         self._op_counts: Dict[Tuple[str, str], int] = {}
         self._counters: Dict[str, int] = {}
@@ -287,6 +318,41 @@ class FaultPlan:
         if hit is not None:
             raise InjectedRefFlipKill(
                 f"injected kill during ref flip of {path}"
+            )
+
+    # -- streaming-input faults ----------------------------------------------
+
+    def maybe_producer_fault(
+        self, chunk_index: int, name: Optional[str] = None
+    ) -> None:
+        """Called by the prefetch ring's producer thread before it stages
+        each chunk: sleeps ``slow_producer_ms`` (every chunk) and raises
+        :class:`InjectedProducerCrash` at the scheduled index (once).
+
+        With ``slow_producer_match`` set, only rings whose ``name``
+        contains one of the substrings sleep (a ring is named
+        ``stream-<trial_id>``): one trial of a sweep degrades while its
+        peers run clean."""
+        if self.slow_producer_ms > 0 and (
+            not self.slow_producer_match
+            or (name is not None and any(
+                s in name for s in self.slow_producer_match
+            ))
+        ):
+            self._count("producer_slowdowns")
+            time.sleep(self.slow_producer_ms / 1000.0)
+        crash = False
+        with self._lock:
+            if self._producer_crash_at is not None \
+                    and int(chunk_index) >= self._producer_crash_at:
+                self._producer_crash_at = None
+                self._counters["producer_crashes"] = (
+                    self._counters.get("producer_crashes", 0) + 1
+                )
+                crash = True
+        if crash:
+            raise InjectedProducerCrash(
+                f"injected producer crash at chunk {chunk_index}"
             )
 
     # -- head faults ---------------------------------------------------------

@@ -8,8 +8,10 @@ think-time precompile dedupes on.
 
 from distributed_machine_learning_tpu_torch.compilecache.keys import (
     NON_STRUCTURAL_KEYS,
+    chunked_program_key,
     program_key,
     shape_class_fingerprint,
 )
 
-__all__ = ["NON_STRUCTURAL_KEYS", "program_key", "shape_class_fingerprint"]
+__all__ = ["NON_STRUCTURAL_KEYS", "chunked_program_key", "program_key",
+           "shape_class_fingerprint"]

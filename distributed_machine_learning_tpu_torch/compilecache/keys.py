@@ -1,6 +1,7 @@
 """Canonical program keys: config -> shape-class fingerprint -> stable id.
 
-Port of ``shape_class_fingerprint`` and ``program_key`` from
+Port of ``shape_class_fingerprint``, ``program_key`` and
+``chunked_program_key`` from
 ``distributed_machine_learning_tpu/compilecache/keys.py`` (stdlib only,
 copied as they are).  A trial's program is determined by everything that
 shapes its computation: model family and architecture knobs,
@@ -98,4 +99,34 @@ def program_key(
     }
     blob = json.dumps(payload, sort_keys=True, separators=(",", ":"))
     return "pk_" + hashlib.sha256(blob.encode()).hexdigest()[:32]
+
+
+def chunked_program_key(
+    config: Dict[str, Any],
+    *,
+    chunk_rows: int,
+    batch_shape: Optional[Sequence[Sequence[int]]] = None,
+    dtype: Optional[str] = None,
+    donation: Sequence[int] = (),
+    extra: Optional[Dict[str, Any]] = None,
+) -> str:
+    """:func:`program_key` of one streaming CHUNK program
+    (``data/pipeline.py``).
+
+    The slab's row count (batches per staged chunk) folds into the key;
+    the number of chunks per epoch does not: the host loops over chunks,
+    so epochs of 10 and of 1000 chunks of one slab shape run the same
+    program.  An epoch whose batch count the chunk size does not divide
+    has one key more, its tail's.  The dataset's length therefore never
+    splits streaming keys; the slab's geometry does."""
+    merged = {"stream_chunk_rows": int(chunk_rows)}
+    if extra:
+        merged.update(extra)
+    return program_key(
+        config,
+        batch_shape=batch_shape,
+        dtype=dtype,
+        donation=donation,
+        extra=merged,
+    )
 

@@ -1,7 +1,9 @@
 """Data of the port: loading, windowing, splits, feature frames and
-synthetic sets (the JAX package's ``data`` exports)."""
+synthetic sets (``__all__``: the JAX package's ``data`` exports), and the
+out-of-core input ring (``data.pipeline``, whose errors and counters are
+importable from here too)."""
 
-from distributed_machine_learning_tpu_torch.data import features
+from distributed_machine_learning_tpu_torch.data import features, pipeline
 from distributed_machine_learning_tpu_torch.data.loader import (
     Dataset,
     get_dataset,
@@ -9,6 +11,12 @@ from distributed_machine_learning_tpu_torch.data.loader import (
     make_regression_dataset,
     split_into_intervals,
     train_val_split,
+)
+from distributed_machine_learning_tpu_torch.data.pipeline import (
+    INPUT_MODES,
+    ProducerStalled,
+    ResidentOverBudgetError,
+    get_host_input_counters,
 )
 from distributed_machine_learning_tpu_torch.data.synthetic import (
     california_housing_data,

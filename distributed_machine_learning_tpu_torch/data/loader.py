@@ -12,13 +12,16 @@ Port of ``distributed_machine_learning_tpu/data/loader.py``:
   schema auto-detection, column dedup, label extraction, windowing
   (interval 96, stride 96), a deterministic 70/30 split;
 * ``Dataset``: an ndarray pair with seeded batches (the native splitmix64
-  Fisher-Yates shuffle and gather, the JAX package's batch order);
+  Fisher-Yates shuffle and gather, the JAX package's batch order), staged
+  onto a device by ``as_torch`` (with the budget check the JAX ``as_jax``
+  makes under ``enforce_budget=True``);
 * the windowed-array disk cache (``$DML_DATASET_CACHE_DIR``): the
   windowed ``.npy`` payloads published as content-store blobs under
   ``<cache_dir>/.cas`` behind a ``dataset-win-<key>`` ref (the JAX
   package's store variant; ``DML_STORE_CKPT=0`` turns it off), else flat
   ``win_<key>_{x,y}.npy`` files, reopened with ``mmap_mode="r"`` either
-  way and counted in :func:`dataset_cache_counters`.
+  way and counted in :func:`dataset_cache_counters` (the ``host_input``
+  counters of ``data/pipeline.py``).
 
 Every array equals the JAX package's byte for byte on the same inputs.
 """
@@ -26,7 +29,6 @@ Every array equals the JAX package's byte for byte on the same inputs.
 from __future__ import annotations
 
 import os
-import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
@@ -131,6 +133,34 @@ class Dataset:
         n = len(self)
         return max(n // batch_size if drop_remainder else -(-n // batch_size), 1)
 
+    def as_torch(self, device=None, enforce_budget: bool = False):
+        """Both arrays staged onto ``device`` (the current card when None)
+        once, as tensors: the counterpart of the JAX ``as_jax``.
+
+        ``enforce_budget=True`` first checks their bytes against the
+        device's budget (``data/pipeline.py::device_budget_bytes``, the
+        virtual ``DML_CPU_DEVICE_BUDGET_BYTES`` one on the CPU) and raises
+        ``ResidentOverBudgetError`` before anything is allocated; the
+        out-of-core alternative is ``input_mode="streaming"``."""
+        import torch
+
+        from distributed_machine_learning_tpu_torch.utils.device import (
+            resolve_device,
+        )
+
+        device = resolve_device("cuda" if device is None else device)
+        if enforce_budget:
+            from distributed_machine_learning_tpu_torch.data.pipeline import (
+                check_resident_budget,
+            )
+
+            check_resident_budget(
+                int(self.x.nbytes) + int(self.y.nbytes), device,
+                what="Dataset.as_torch",
+            )
+        return (torch.as_tensor(np.asarray(self.x)).to(device),
+                torch.as_tensor(np.asarray(self.y)).to(device))
+
 
 def train_val_split(
     x: np.ndarray,
@@ -155,23 +185,28 @@ def train_val_split(
 # ---------------------------------------------------------------------------
 
 CACHE_DIR_ENV_VAR = "DML_DATASET_CACHE_DIR"
-_cache_lock = threading.Lock()
-_cache_counters: Dict[str, int] = {
-    "dataset_cache_hits": 0, "dataset_cache_misses": 0,
-    "dataset_cache_bytes": 0}
+_CACHE_COUNTERS = ("dataset_cache_hits", "dataset_cache_misses",
+                   "dataset_cache_bytes")
 
 
 def dataset_cache_counters() -> Dict[str, int]:
     """The window cache's counters in this process: hits, misses and the
-    bytes served from the cache (the JAX package's ``host_input``
-    counters of the same names)."""
-    with _cache_lock:
-        return dict(_cache_counters)
+    bytes served from the cache, kept in the ``host_input`` registry of
+    ``data/pipeline.py`` as in the JAX package."""
+    from distributed_machine_learning_tpu_torch.data.pipeline import (
+        get_host_input_counters,
+    )
+
+    counters = get_host_input_counters()
+    return {name: int(counters.get(name)) for name in _CACHE_COUNTERS}
 
 
 def _count(name: str, value: int = 1) -> None:
-    with _cache_lock:
-        _cache_counters[name] += int(value)
+    from distributed_machine_learning_tpu_torch.data.pipeline import (
+        get_host_input_counters,
+    )
+
+    get_host_input_counters().add(name, int(value))
 
 
 def dataset_cache_dir(explicit: Optional[str] = None) -> Optional[str]:

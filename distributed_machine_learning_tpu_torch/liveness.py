@@ -20,7 +20,9 @@ owns the two primitives that turn silence into an event:
 The watchdog never unblocks a wedged call itself.  What it enables is the
 layer's response: the process executor SIGTERMs the trial's incarnation
 and restarts it from its checkpoint, the thread executor marks the trial
-STALLED.
+STALLED, and the streaming input ring (``data/pipeline.py``), which
+watches its producer thread with one, counts ``producer_stalls`` and
+past its hard timeout raises ``ProducerStalled`` in the trial.
 
 The JAX module records each detected stall in the flight recorder of its
 observability plane (``obs.record_event``); that plane is ROADMAP.md A10,

@@ -14,11 +14,17 @@ passed to ``forward(x, rng)``: a ``torch.Generator`` (one trial), or a
 per-row stream (``ops/rng.py``: a population under ``torch.func.vmap``);
 nothing reads torch's global RNG in training.  Evaluation draws nothing.
 
-Rematerialization (:func:`remat_call`) runs a block under a non-reentrant
-``torch.utils.checkpoint``, with the ``jax.checkpoint_policies`` names
-mapped onto selective-checkpoint policies (:func:`resolve_remat_policy`;
-``everything_saveable`` runs the block without a checkpoint), and
-replays the block's dropout generator in the recompute.
+Rematerialization (:func:`remat_call`) runs one trial's block under a
+non-reentrant ``torch.utils.checkpoint``, with the
+``jax.checkpoint_policies`` names mapped onto selective-checkpoint
+policies (:func:`resolve_remat_policy`; ``everything_saveable`` runs the
+block without a checkpoint), and replays the block's dropout generator in
+the recompute.  A population's block (its masks drawn from a row stream,
+under ``torch.func``'s ``vmap(grad(...))``, where ``torch.utils.checkpoint``
+raises) runs as :class:`_PopulationRemat`, an ``autograd.Function`` whose
+backward reruns the block from its saved inputs and takes its
+vector-Jacobian product; a dots policy keeps the block's products from
+the forward and hands them back to the rerun (:class:`_DotsTape`).
 
 The mixture-of-experts feed-forward (``feedforward_type="moe"``,
 ``models/moe.py``) returns its load-balance term beside its output; an
@@ -32,8 +38,9 @@ not carried over: "flash" runs only where the config names it.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, Optional, Union
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -44,6 +51,7 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
 )
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from distributed_machine_learning_tpu_torch.ops.attention import (
     blockwise_attention,
@@ -85,6 +93,8 @@ def _saving(ops: frozenset) -> Callable:
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
 
+    # What a population's rerun takes from the forward (_DotsTape).
+    policy.saved_ops = ops
     return policy
 
 
@@ -119,9 +129,10 @@ def resolve_remat_policy(name) -> Optional[Callable]:
     return REMAT_POLICIES[name]
 
 
-def remat_call(block: Callable, x: torch.Tensor, rng, policy=None
-               ) -> torch.Tensor:
-    """``block(x, rng)`` under a non-reentrant ``torch.utils.checkpoint``:
+def remat_call(block: Callable, x: torch.Tensor, rng, policy=None,
+               aux: Optional[list] = None) -> torch.Tensor:
+    """``block(x, rng)`` (with ``aux=aux`` when ``aux`` is a list) under a
+    non-reentrant ``torch.utils.checkpoint``:
     its activations are recomputed in the backward, but for what
     ``policy`` (from :func:`resolve_remat_policy`) saves;
     :data:`SAVE_EVERYTHING` runs the block plainly.
@@ -130,14 +141,17 @@ def remat_call(block: Callable, x: torch.Tensor, rng, policy=None
     state, and the masks here come from the explicit ``rng``; a plain
     checkpoint would draw new masks in the recompute (wrong gradients)
     and advance ``rng`` twice.  So the generator's state is taken before
-    the block, set back for the recompute, and restored after it."""
+    the block, set back for the recompute, and restored after it.
+
+    With a row stream (a population, under ``torch.func``) ``block``
+    must be an ``nn.Module`` and the call goes to
+    :func:`population_remat`."""
+    if isinstance(rng, RowStream) and policy != SAVE_EVERYTHING:
+        return population_remat(block, x, rng, policy, aux)
+    if aux is not None:
+        block = functools.partial(block, aux=aux)
     if policy == SAVE_EVERYTHING:
         return block(x, rng)
-    if rng is not None and not isinstance(rng, torch.Generator):
-        raise NotImplementedError(
-            "remat draws its masks from a torch.Generator; a population's "
-            "row streams (torch.func) are not rematerialized"
-        )
     before = None if rng is None else rng.get_state()
     calls = [0]
 
@@ -159,6 +173,157 @@ def remat_call(block: Callable, x: torch.Tensor, rng, policy=None
     # The default generators draw nothing here: no need to stash them.
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
                       **kwargs)
+
+
+class _DotsTape(TorchDispatchMode):
+    """Keeps the outputs of a dots policy's products (``ops``) in call
+    order, or, with ``replay``, hands them back in the same order instead
+    of computing them again.  It sits below ``torch.func``'s transforms,
+    so it sees the physical products of a vmapped block (the batched
+    ``bmm`` a row's ``mm`` becomes); autograd above it records each
+    product as computed, and its derivative reads the product's inputs,
+    not its output."""
+
+    def __init__(self, ops: frozenset, tape: List[torch.Tensor],
+                 replay: bool = False):
+        super().__init__()
+        self.ops = ops
+        self.tape = tape
+        self.replay = replay
+        self.next = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in self.ops:
+            return func(*args, **(kwargs or {}))
+        if self.replay:
+            out = self.tape[self.next]
+            self.next += 1
+            return out
+        out = func(*args, **(kwargs or {}))
+        self.tape.append(out)
+        return out
+
+
+class _RematPlan:
+    """What :class:`_PopulationRemat` needs beside its tensors: the block,
+    its parameter names, the row stream's step and first site, the
+    policy's saved products and, after the forward, the site the block
+    left the stream at."""
+
+    def __init__(self, block: nn.Module, names, step: int, site: int,
+                 saved_ops: Optional[frozenset], with_aux: bool):
+        self.block = block
+        self.names = names
+        self.step = step
+        self.site = site
+        self.saved_ops = saved_ops
+        self.with_aux = with_aux
+        self.tape: List[torch.Tensor] = []
+        self.site_end = site
+
+    def run(self, x, seed, params):
+        """The block on ``x`` with ``params``, its masks drawn from the
+        row stream at the block's first site: ``(y,)`` or ``(y, aux)``."""
+        from torch.func import functional_call
+
+        rng = RowStream(seed, self.step)
+        rng.site = self.site
+        aux = [] if self.with_aux else None
+        kwargs = {"aux": aux} if self.with_aux else {}
+        y = functional_call(self.block, dict(zip(self.names, params)),
+                            (x, rng), kwargs)
+        self.site_end = rng.site
+        if self.with_aux:
+            (term,) = aux
+            return y, term
+        return (y,)
+
+    def tape_mode(self, replay: bool):
+        if self.saved_ops is None:
+            return contextlib.nullcontext()
+        return _DotsTape(self.saved_ops, self.tape, replay=replay)
+
+
+class _PopulationRemat(torch.autograd.Function):
+    """One block of a population, rematerialized: the forward keeps no
+    activation of the block (but a dots policy's products), the backward
+    reruns the block from its inputs and takes its vector-Jacobian
+    product.
+
+    Both the forward and the rerun run the block under a
+    ``torch.func.vjp``, so the block's operators see their inputs
+    requiring gradients as a plain step's do (``matmul`` picks its
+    products by that): the forward's values are the plain forward's bit
+    for bit; the forward then drops its graph.  The block's parameters
+    and the row stream's seed (a batched tensor under ``vmap``) are
+    inputs of the Function, not values it closes over.  The recompute
+    draws its masks from the stream at the block's first site, so it
+    draws the forward's masks.  A nested ``autograd.Function`` (flash
+    attention) runs inside both; its own ``vmap`` rule folds the rows
+    into one launch.  ``generate_vmap_rule`` lets ``torch.func`` vmap the
+    forward and the backward.
+
+    ``torch.func.grad`` takes its gradient with ``create_graph=True``,
+    which keeps every saved tensor to the end of the backward and records
+    the backward's own operations.  So the rerun starts from detached
+    inputs and its pullback keeps no graph: each block's recomputed
+    activations are freed as soon as its gradients exist, and a remat
+    block has no second derivative.  Without that, the reruns of all the
+    blocks would live together and remat would save nothing."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(plan: _RematPlan, x, seed, *params):
+        from torch.func import vjp
+
+        del plan.tape[:]
+        with torch.enable_grad(), plan.tape_mode(replay=False):
+            out, _ = vjp(lambda h, *ps: plan.run(h, seed, ps), x, *params)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        plan, x, seed, *params = inputs
+        ctx.plan = plan
+        ctx.save_for_backward(x, seed, *params)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.func import vjp
+
+        plan = ctx.plan
+        x, seed, *params = (t.detach() for t in ctx.saved_tensors)
+        with torch.enable_grad(), plan.tape_mode(replay=True):
+            out, pullback = vjp(lambda h, *ps: plan.run(h, seed, ps),
+                                x, *params)
+        grads = tuple(torch.zeros_like(o) if g is None else g.detach()
+                      for o, g in zip(out, grads))
+        dx, *dparams = pullback(grads, retain_graph=False,
+                                create_graph=False)
+        return (None, dx, None, *dparams)
+
+
+def population_remat(block: nn.Module, x: torch.Tensor, rng: RowStream,
+                     policy=None, aux: Optional[list] = None
+                     ) -> torch.Tensor:
+    """``block(x, rng)`` (``aux=aux`` too when ``aux`` is a list) through
+    :class:`_PopulationRemat`, for a population's row stream: the
+    block's activations are recomputed in the backward, but for the
+    products a dots ``policy`` (:func:`resolve_remat_policy`) keeps.
+    The stream's site counter ends where a plain forward leaves it."""
+    if not isinstance(block, nn.Module):
+        raise TypeError(
+            "a population's remat reruns an nn.Module block with its "
+            f"parameters as inputs; got {type(block).__name__}")
+    names, params = zip(*block.named_parameters())
+    plan = _RematPlan(block, names, rng.step, rng.site,
+                      getattr(policy, "saved_ops", None), aux is not None)
+    out = _PopulationRemat.apply(plan, x, rng.seed, *params)
+    rng.site = plan.site_end
+    if aux is not None:
+        aux.append(out[1])
+    return out[0]
 
 
 def _compute_dtype(dtype: Optional[torch.dtype], *tensors) -> torch.dtype:

@@ -10,15 +10,16 @@ Port of ``distributed_machine_learning_tpu/models/transformer.py``:
 
 The input width is an explicit ``input_features`` (flax infers it from the
 first batch; ``models.build_model`` reads it off the weights).  ``remat``
-runs each encoder block (or each application of the shared one) under
-``layers.remat_call`` in training with gradients on, as flax's
-``nn.remat`` does, with ``remat_policy`` naming what a block keeps; it
-changes nothing in evaluation.
+runs each encoder block (or each application of the shared one), the
+MoE ones included, under ``layers.remat_call`` in training with
+gradients on, as flax's ``nn.remat`` does, with ``remat_policy`` naming
+what a block keeps: one trial's blocks through ``torch.utils.checkpoint``,
+a population's (its row streams, under ``torch.func``) through
+``layers.population_remat``.  It changes nothing in evaluation.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence
 
 import torch
@@ -156,10 +157,13 @@ class TransformerRegressor(nn.Module):
         for i in range(self.num_layers):
             layer = (self.shared_layer.layer if self.shared_weights
                      else getattr(self, f"layer_{i}"))
-            if self.collects_aux:
-                layer = functools.partial(layer, aux=aux)
-            x = (remat_call(layer, x, rng, self.remat_policy) if remat
-                 else layer(x, rng))
+            if remat:
+                x = remat_call(layer, x, rng, self.remat_policy,
+                               aux if self.collects_aux else None)
+            elif self.collects_aux:
+                x = layer(x, rng, aux=aux)
+            else:
+                x = layer(x, rng)
         return self.head(x[:, -1, :])
 
 

@@ -26,10 +26,11 @@ back at ``Hkv`` heads.  :func:`flash_attention` is the autograd function:
 its forward saves O and lse, its backward runs :func:`flash_backward`.
 
 Under a non-reentrant ``torch.utils.checkpoint`` (remat,
-``models/layers.py::remat_call``) the forward runs again inside the
-backward to give back what it saved, and launches the kernel again (a
-ctypes launch is no operator a selective policy can keep), so each
-launch counter counts what the card ran: two forwards per remat block.
+``models/layers.py::remat_call``), or a population's
+``layers._PopulationRemat``, the forward runs again inside the backward
+to give back what it saved, and launches the kernel again (a ctypes
+launch is no operator a selective policy can keep), so each launch
+counter counts what the card ran: two forwards per remat block.
 """
 
 from __future__ import annotations

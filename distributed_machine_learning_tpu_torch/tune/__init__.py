@@ -30,10 +30,13 @@ single blob, or ``checkpoint_format="sharded"`` generations through the
 content store; the JAX package's msgpack checkpoints and generations are
 read too) on any ``tune.storage`` scheme (``gs://``, ``s3://``, fsspec's
 ``memory://``), the session and ``train_regressor`` with every
-optimizer, gradient accumulation and remat; and ``tune.run_vectorized``, which
+optimizer, gradient accumulation, remat and ``input_mode`` (resident
+epochs or the out-of-core prefetch ring of ``data/pipeline.py``); and
+``tune.run_vectorized``, which
 trains a population of trials as one batched program (the bench
-headline's runner, with PBT and PB2 as a row gather of the population
-and PBT's ``quality_after_quant``; ``device="cpu"`` without a card); and the
+headline's runner, with PBT and PB2 as a row gather of the population,
+remat under every policy name, and PBT's ``quality_after_quant``;
+``device="cpu"`` without a card); and the
 decision journal (``tune/journal.py``), with which ``tune.run(resume="auto")``
 restores a sweep whose head died, and ``tune/crashsim.py``, the harness
 that kills a head mid-sweep.  The rest (the sharded runners, the

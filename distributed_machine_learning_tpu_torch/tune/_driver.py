@@ -104,6 +104,7 @@ class TrialLifecycle:
         keep_checkpoints_num: int = 0,
         time_limit_per_trial_s: Optional[float] = None,
         log: Callable[[str], None] = lambda msg: None,
+        config_overlay: Optional[Dict[str, Any]] = None,
         journal=None,
     ):
         self.searcher = searcher
@@ -123,6 +124,10 @@ class TrialLifecycle:
         self.keep_checkpoints_num = keep_checkpoints_num
         self.time_limit_per_trial_s = time_limit_per_trial_s
         self.log = log
+        # Sweep-wide config defaults under every sampled config
+        # (tune.run(input_mode=...) stamping the sweep-wide mode); a key
+        # the search space samples wins over the overlay.
+        self.config_overlay = dict(config_overlay or {})
 
         self.trials: List[Trial] = []
         self.by_id: Dict[str, Trial] = {}
@@ -173,6 +178,8 @@ class TrialLifecycle:
         if config is None:
             self.searcher_exhausted = True
             return None
+        if self.config_overlay:
+            config = {**self.config_overlay, **config}
         trial = Trial(
             trial_id=f"trial_{self.next_index:05d}", config=config, **trial_kwargs
         )

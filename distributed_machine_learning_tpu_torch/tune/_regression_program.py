@@ -13,6 +13,11 @@ Two things become explicit arguments:
 * the ``torch.Generator`` the dropout masks are drawn from, one draw after
   another through the epoch's steps.
 
+The streaming chunk programs (:func:`make_chunk_epoch_fn`,
+:func:`make_chunk_eval_fn`, the JAX module's counterparts) run the same
+step and the same block sums over a staged slab of gathered batches
+(``data/pipeline.py``).
+
 ``make_forward``/``detect_call_convention`` are not needed: a torch model
 switches between training and evaluation with ``train()``/``eval()``.  An
 MoE model's load-balance terms come back through an explicit ``aux`` list
@@ -56,7 +61,7 @@ read back until the caller reads the stacked outputs.  There is no
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -123,9 +128,7 @@ def make_epoch_fn(
     ``MultiSteps`` micro-step returns no update and leaves the parameters
     as they are.
     """
-    params = dict(model.named_parameters())
-    collects_aux = getattr(model, "collects_aux", False)
-    running = batch_stats_of(model)
+    step = _make_train_step(model, tx, loss_fn)
 
     def epoch(opt_state, x_all, y_all, perm, generator: Optional[torch.Generator]):
         perm = torch.as_tensor(
@@ -134,25 +137,64 @@ def make_epoch_fn(
         if perm.numel() != num_batches * batch_size:
             raise ValueError(f"perm of {n_train} rows has too few entries")
         model.train()
-        losses = []
-        for idx in perm.reshape(num_batches, batch_size):
-            xb, yb = x_all[idx], y_all[idx]
-            aux = [] if collects_aux else None
-            new_stats = {} if running else None
-            preds = model(xb, rng=generator, **aux_kwargs(aux),
-                          **stats_kwargs(new_stats))
-            loss = with_aux(loss_fn(preds.float(), yb), aux)
-            grads = torch.autograd.grad(loss, list(params.values()))
-            updates = tx.update(dict(zip(params, grads)), opt_state, params)
-            apply_updates(params, updates)
-            if running:
-                with torch.no_grad():
-                    for name, value in new_stats.items():
-                        running[name].copy_(value)
-            losses.append(loss.detach())
+        losses = [step(opt_state, x_all[idx], y_all[idx], generator)
+                  for idx in perm.reshape(num_batches, batch_size)]
         return torch.stack(losses).mean()
 
     return epoch
+
+
+def _make_train_step(model: torch.nn.Module, tx, loss_fn: Callable
+                     ) -> Callable:
+    """One training step on one batch, the parameters updated in place:
+    ``step(opt_state, xb, yb, generator) -> loss`` (detached).  The body
+    of both the resident epoch and the streaming chunk."""
+    params = dict(model.named_parameters())
+    collects_aux = getattr(model, "collects_aux", False)
+    running = batch_stats_of(model)
+
+    def step(opt_state, xb, yb, generator):
+        aux = [] if collects_aux else None
+        new_stats = {} if running else None
+        preds = model(xb, rng=generator, **aux_kwargs(aux),
+                      **stats_kwargs(new_stats))
+        loss = with_aux(loss_fn(preds.float(), yb), aux)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        updates = tx.update(dict(zip(params, grads)), opt_state, params)
+        apply_updates(params, updates)
+        if running:
+            with torch.no_grad():
+                for name, value in new_stats.items():
+                    running[name].copy_(value)
+        return loss.detach()
+
+    return step
+
+
+def make_chunk_epoch_fn(
+    model: torch.nn.Module,
+    tx: Union[InjectedOptimizer, Optimizer, MultiSteps],
+    loss_fn: Callable,
+) -> Callable:
+    """One streamed CHUNK of an epoch (``data/pipeline.py``): the resident
+    epoch's step over a staged slab of gathered batches.
+
+    ``chunk(opt_state, xb, yb, generator) -> losses`` (``[rows]``, on the
+    device, not read back) for ``xb``/``yb`` slabs ``[rows, batch_size,
+    ...]``.  The step is :func:`make_epoch_fn`'s own, and the dropout
+    generator carries on from chunk to chunk, so step i of an epoch
+    draws its masks where the resident epoch's step i draws them
+    whatever the chunk boundaries: given the resident epoch's batches in
+    its order, a streamed epoch is the resident epoch bit for bit (its
+    mean loss is the mean of the chunks' losses concatenated)."""
+    step = _make_train_step(model, tx, loss_fn)
+
+    def chunk(opt_state, xb, yb, generator: Optional[torch.Generator]):
+        model.train()
+        return torch.stack([step(opt_state, xb[i], yb[i], generator)
+                            for i in range(xb.shape[0])])
+
+    return chunk
 
 
 def eval_metrics_from_sums(
@@ -218,6 +260,16 @@ def make_score_fn(metric: str, loss_name: str, n_val: int) -> Callable:
     return score
 
 
+def _block_sums(model: torch.nn.Module, x, y, m) -> torch.Tensor:
+    """One validation block's masked sums of squared error, absolute
+    error, APE and Huber: ``[4]`` on the device."""
+    preds = model(x).float()
+    se, ae, ape = per_example_losses(preds, y)
+    hub = torch.mean(huber(preds, y, delta=1.0), dim=-1)
+    return torch.stack([(se * m).sum(), (ae * m).sum(), (ape * m).sum(),
+                        (hub * m).sum()])
+
+
 def make_eval_fn(
     model: torch.nn.Module, loss_name: str, n_blocks: int, eval_bs: int
 ) -> Callable:
@@ -227,21 +279,39 @@ def make_eval_fn(
 
     def evaluate(x_all, y_all, mask) -> Dict[str, float]:
         model.eval()
-        sums = []
         with torch.inference_mode():
-            for i in range(n_blocks):
-                rows = slice(i * eval_bs, (i + 1) * eval_bs)
-                x, y, m = x_all[rows], y_all[rows], mask[rows]
-                preds = model(x).float()
-                se, ae, ape = per_example_losses(preds, y)
-                hub = torch.mean(huber(preds, y, delta=1.0), dim=-1)
-                sums.append(torch.stack([(se * m).sum(), (ae * m).sum(),
-                                         (ape * m).sum(), (hub * m).sum()]))
+            sums = [_block_sums(model, x_all[rows], y_all[rows], mask[rows])
+                    for rows in (slice(i * eval_bs, (i + 1) * eval_bs)
+                                 for i in range(n_blocks))]
             total = torch.stack(sums).sum(dim=0)
             se, ae, ape, hub, count = (*total.tolist(), mask.sum().item())
         return eval_metrics_from_sums(loss_name, se, ae, ape, hub, count)
 
     return evaluate
+
+
+def make_chunk_eval_fn(model: torch.nn.Module) -> Callable:
+    """Masked eval over ONE streamed chunk of validation blocks:
+    ``(xb, yb, mb) -> [rows, 4]``, each block's sums as
+    :func:`make_eval_fn` takes them.  The caller concatenates the chunks'
+    rows and sums them as :func:`make_eval_fn` sums its blocks, so a
+    streamed validation reads the resident one's metrics bit for bit."""
+
+    def evaluate_chunk(xb, yb, mb) -> torch.Tensor:
+        model.eval()
+        with torch.inference_mode():
+            return torch.stack([_block_sums(model, xb[i], yb[i], mb[i])
+                                for i in range(xb.shape[0])])
+
+    return evaluate_chunk
+
+
+def chunk_eval_metrics(loss_name: str, parts, count: float
+                       ) -> Dict[str, float]:
+    """The metric dict from the chunks' ``[rows, 4]`` block sums (in
+    epoch order) over ``count`` real rows."""
+    se, ae, ape, hub = torch.cat(list(parts)).sum(dim=0).tolist()
+    return eval_metrics_from_sums(loss_name, se, ae, ape, hub, count)
 
 
 def make_population_epoch_fn(
@@ -508,6 +578,40 @@ class StagedData:
     eval_bs: int
 
 
+def batch_layout(n_train: int, batch_size: int, n_val: int
+                 ) -> Tuple[int, int, int, int]:
+    """``(batch_size, num_batches, eval_bs, n_val_pad)``: the batch size
+    cut to the training rows, the batches per epoch (the remainder is
+    dropped), the validation block size and the validation rows padded
+    to whole blocks."""
+    batch_size = int(min(batch_size, n_train))
+    num_batches = max(n_train // batch_size, 1)
+    eval_bs = int(min(max(batch_size, 1), n_val))
+    return batch_size, num_batches, eval_bs, -(-n_val // eval_bs) * eval_bs
+
+
+def padded_validation(val_data, n_val_pad: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The validation arrays zero-padded to ``n_val_pad`` rows, and the
+    f32 mask of the real rows, on the host."""
+    n_val = len(val_data)
+    pad = n_val_pad - n_val
+
+    def padded(a):
+        return np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)]) \
+            if pad else a
+
+    mask = np.concatenate([np.ones(n_val, np.float32),
+                           np.zeros(pad, np.float32)])
+    return padded(val_data.x), padded(val_data.y), mask
+
+
+def to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host array staged onto ``device`` in ``dtype`` (the cast rounds
+    to nearest even)."""
+    return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+
 def stage_data(
     train_data, val_data, batch_size: int, compute_dtype: torch.dtype,
     device,
@@ -515,29 +619,15 @@ def stage_data(
     """Stage both splits to ``device`` once; pad validation to whole
     blocks.  Inputs in the compute dtype, targets in f32."""
     n_train = len(train_data)
-    batch_size = int(min(batch_size, n_train))
-    num_batches = max(n_train // batch_size, 1)
-
-    n_val = len(val_data)
-    eval_bs = int(min(max(batch_size, 1), n_val))
-    n_val_pad = -(-n_val // eval_bs) * eval_bs
-    pad = n_val_pad - n_val
-
-    def padded(a):
-        return np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)]) \
-            if pad else a
-
-    def put(a, dtype):
-        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
-
+    batch_size, num_batches, eval_bs, n_val_pad = batch_layout(
+        n_train, batch_size, len(val_data))
+    xv, yv, mask = padded_validation(val_data, n_val_pad)
     return StagedData(
-        x_train=put(train_data.x, compute_dtype),
-        y_train=put(train_data.y, torch.float32),
-        x_val=put(padded(val_data.x), compute_dtype),
-        y_val=put(padded(val_data.y), torch.float32),
-        val_mask=put(np.concatenate([np.ones(n_val, np.float32),
-                                     np.zeros(pad, np.float32)]),
-                     torch.float32),
+        x_train=to_device(train_data.x, compute_dtype, device),
+        y_train=to_device(train_data.y, torch.float32, device),
+        x_val=to_device(xv, compute_dtype, device),
+        y_val=to_device(yv, torch.float32, device),
+        val_mask=to_device(mask, torch.float32, device),
         n_train=n_train,
         num_batches=num_batches,
         batch_size=batch_size,

@@ -43,8 +43,9 @@ def with_default_reporter(callbacks, verbose: int):
 
 
 # The experiment state's counter blocks and their scalar prefixes, in the
-# JAX runners' order.  The port keeps the checkpoint, pbt and host_input
-# families; the
+# JAX runners' order.  The port keeps the checkpoint, pbt, journal and
+# host_input families (the last from data/pipeline.py's counters:
+# ``host_input/prefetch_hits``, ``.../overlap_efficiency``, ...); the
 # others stay empty until their layers are ported.
 COUNTER_FAMILIES = (
     ("liveness", "liveness"), ("injected_faults", "faults"),

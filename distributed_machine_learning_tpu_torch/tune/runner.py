@@ -20,8 +20,12 @@ kills one that goes quiet; ``progress_deadline_s`` and
 knobs of the reference that are not ported yet raise
 ``NotImplementedError`` when set away from their defaults, naming the
 ROADMAP.md item that will lift them (:data:`UNPORTED_KNOB_ITEMS`):
-``input_mode`` (A6), ``mesh_shape`` (A9), ``trace`` and
-``trace_profile_trials`` (A10).  ``checkpoint_storage`` may be any
+``mesh_shape`` (A9), ``trace`` and ``trace_profile_trials`` (A10).
+``input_mode`` (``"auto"``, ``"resident"``, ``"streaming"``) is stamped
+into every sampled config (a config's own value wins), and each run's
+``host_input`` counters (``data/pipeline.py``: the prefetch ring's hits,
+waits and overlap efficiency, the window cache) land in
+``experiment_state.json["host_input"]``.  ``checkpoint_storage`` may be any
 ``tune.storage`` scheme (``gs://``, ``s3://``, fsspec's ``memory://``, a
 local path), and ``checkpoint_format="sharded"`` writes COMMIT-last
 generations through the content store (``ckpt/``); each run's checkpoint
@@ -49,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 from distributed_machine_learning_tpu_torch import chaos
 from distributed_machine_learning_tpu_torch.compilecache import program_key
+from distributed_machine_learning_tpu_torch.data import pipeline as hostpipe
 from distributed_machine_learning_tpu_torch.liveness import DispatchWatchdog
 from distributed_machine_learning_tpu_torch.tune._driver import (
     TrialLifecycle,
@@ -95,7 +100,6 @@ DEFAULT_STORAGE = "~/dml_torch_results"
 
 # The ROADMAP.md item that will lift each refused knob.
 UNPORTED_KNOB_ITEMS = {
-    "input_mode": "A6",
     "mesh_shape": "A9",
     "trace": "A10",
     "trace_profile_trials": "A10",
@@ -170,6 +174,14 @@ def run(
     its own; model-based searchers observe their results.
     ``stop``: dict of result-key -> threshold, a callable
     ``(trial_id, result) -> bool``, or a ``tune.Stopper``.
+    ``input_mode``: the sweep-wide data staging mode stamped into every
+    sampled config (a config carrying its own ``input_mode`` wins):
+    ``"resident"`` (both splits on the device; raises over the device's
+    budget), ``"streaming"`` (the prefetch ring, ``data/pipeline.py``) or
+    ``"auto"`` (streaming past ``streaming_engage_fraction`` of the
+    budget).  A run that streamed publishes the ``host_input`` counters
+    (prefetch hits, producer and consumer waits, overlap efficiency) in
+    ``experiment_state.json`` and as ``host_input/*`` scalars.
     ``max_failures``: per-trial retry budget; retries restore from the
     trial's newest checkpoint when one exists.
     ``keep_checkpoints_num``: keep only the newest k checkpoints per trial
@@ -224,13 +236,17 @@ def run(
     """
     if mode not in ("min", "max"):
         raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+    if input_mode is not None and input_mode not in hostpipe.INPUT_MODES:
+        raise ValueError(
+            f"input_mode must be one of {hostpipe.INPUT_MODES}, "
+            f"got {input_mode!r}"
+        )
     if trial_executor not in ("thread", "process"):
         raise ValueError(
             f"trial_executor must be 'thread' or 'process', got {trial_executor!r}"
         )
     _refuse_unported({
         "mesh_shape": mesh_shape is not None,
-        "input_mode": input_mode is not None,
         "trace": bool(trace),
         "trace_profile_trials": bool(trace_profile_trials),
     })
@@ -275,6 +291,7 @@ def run(
     from distributed_machine_learning_tpu_torch.ckpt import get_metrics
 
     ckpt_metrics_base = get_metrics().snapshot()
+    host_input_base = hostpipe.get_host_input_counters().snapshot()
     # The dead head's journal is read before this head appends to it.
     replay = journal_lib.parse_journal(store.root) if journal_resume else None
     # Every scheduling decision is journaled (write-ahead) before it takes
@@ -319,6 +336,7 @@ def run(
         keep_checkpoints_num=keep_checkpoints_num,
         time_limit_per_trial_s=time_limit_per_trial_s,
         log=log,
+        config_overlay={"input_mode": input_mode} if input_mode else None,
         journal=journal,
     )
     trials = lifecycle.trials
@@ -608,6 +626,12 @@ def run(
         ckpt_counters = get_metrics().delta_since(ckpt_metrics_base)
         if any(ckpt_counters.values()):
             extra["checkpoint"] = ckpt_counters
+        # Host-input accounting for THIS run (streaming and the window
+        # cache): present only when something streamed or the cache was
+        # touched.
+        host_input = hostpipe.host_input_block(host_input_base)
+        if host_input is not None:
+            extra["host_input"] = host_input
         plan = chaos.active_plan()
         if plan is not None:
             # A chaos run's state records what was injected.

@@ -38,6 +38,12 @@ here, since the port runs eagerly and compiles nothing:
   most one interval on the boundary path);
 * populations are not padded to a size multiple (the TPU's sublane rule).
 
+``remat=True`` recomputes each encoder block of every row in the
+backward under any ``remat_policy`` name, as the JAX runner vmaps
+``nn.remat`` (``models/layers.py::population_remat``); ``remat`` and
+``remat_policy`` shape the program, so they group configs like any
+other static key.
+
 ``input_mode="streaming"`` falls back to resident staging, counted as
 ``host_input.mode_fallbacks`` in ``experiment_state.json``, as in the JAX
 runner.  Each trial's parameters at its end (its last epoch, or the
@@ -111,6 +117,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from distributed_machine_learning_tpu_torch.data import pipeline as hostpipe
 from distributed_machine_learning_tpu_torch.data.loader import Dataset
 from distributed_machine_learning_tpu_torch.models import (
     batch_stats_names,
@@ -177,7 +184,6 @@ from distributed_machine_learning_tpu_torch.tune.stoppers import (
     stop_hit,
 )
 from distributed_machine_learning_tpu_torch.tune.trainable import (
-    _refuse_unported as _refuse_unported_config,
     epoch_permutation,
 )
 from distributed_machine_learning_tpu_torch.tune.trial import Trial, TrialStatus
@@ -189,8 +195,6 @@ from distributed_machine_learning_tpu_torch.utils.seeding import (
 
 # Hyperparameters that vary across trials *within* one population.
 VECTOR_KEYS = ("learning_rate", "weight_decay", "seed")
-
-INPUT_MODES = ("auto", "resident", "streaming")
 
 # The population checkpoint's index under the experiment root.
 POPULATION_CHECKPOINT = "population.json"
@@ -218,11 +222,6 @@ def _refuse_population_knobs(cfg: Dict[str, Any]) -> None:
             "run_vectorized never reads accumulate_grad_batches and steps "
             "every batch, so the port refuses it rather than ignore it; "
             "use tune.run (see ROADMAP.md C)"
-        )
-    if cfg.get("remat"):
-        raise NotImplementedError(
-            "run_vectorized(remat=True): torch.utils.checkpoint does not run "
-            "under torch.func's vmap(grad(...)); see ROADMAP.md A1e"
         )
 
 
@@ -256,7 +255,6 @@ class _GroupProgram:
         cfg = static_cfg
         self._static_cfg = dict(static_cfg)
         resolve_rng_impl(cfg)
-        _refuse_unported_config(cfg)
         _refuse_population_knobs(cfg)
         opt_name = check_supported(cfg.get("optimizer", "adam"))
         self.device = device
@@ -667,9 +665,10 @@ def run_vectorized(
         raise ValueError("resume=True requires name= of the prior run")
     if mode not in ("min", "max"):
         raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
-    if input_mode not in INPUT_MODES:
+    if input_mode not in hostpipe.INPUT_MODES:
         raise ValueError(
-            f"input_mode must be one of {INPUT_MODES}, got {input_mode!r}")
+            f"input_mode must be one of {hostpipe.INPUT_MODES}, got "
+            f"{input_mode!r}")
     if compaction not in ("auto", "always", "never"):
         raise ValueError(
             f"compaction must be 'auto', 'always' or 'never', got {compaction!r}"
@@ -690,12 +689,12 @@ def run_vectorized(
         compile_cache_dir=compile_cache_dir,
     )
     device = resolve_device(devices[0] if devices else (device or "cuda"))
-    mode_fallbacks = 0
+    host_input_base = hostpipe.get_host_input_counters().snapshot()
     if input_mode == "streaming":
         # Every row's batches are gathered from the shared staged splits
         # on the device; a host-side chunk gather would multiply host work
         # (and slab bytes) by the population size.
-        mode_fallbacks += 1
+        hostpipe.get_host_input_counters().add("mode_fallbacks")
     space = (
         param_space if isinstance(param_space, SearchSpace)
         else SearchSpace(param_space)
@@ -764,7 +763,7 @@ def run_vectorized(
         )
         ckpt_path = pop_manager.directory
 
-    if mode_fallbacks:
+    if input_mode == "streaming":
         log("input_mode='streaming' falls back to resident staging here: "
             "populations gather per-row permutations from the shared "
             "staged splits (counted as host_input.mode_fallbacks; use "
@@ -799,9 +798,12 @@ def run_vectorized(
             "population_compactions": compactions,
             "compile_time_total_s": 0.0,
         }
-        if mode_fallbacks or input_mode != "auto":
-            extra["host_input"] = {"mode_fallbacks": mode_fallbacks,
-                                   "input_mode_requested": input_mode}
+        # The window cache's activity and the streaming fallback, with
+        # the mode asked for.
+        host_input = hostpipe.host_input_block(host_input_base)
+        if host_input is not None:
+            host_input["input_mode_requested"] = input_mode
+            extra["host_input"] = host_input
         if pop_manager is not None:
             # Drain in-flight population writes so the directory a resume
             # reads is complete, then prune to keep-2 (a save's own prune

@@ -357,3 +357,138 @@ def test_train_regressor_runs_on_the_card(card):
     assert all(np.isfinite(r["train_loss"]) for r in records)
     assert records[-1]["device_bytes_in_use"] > 0
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pinned_ring_stages_what_the_plain_copy_stages(card, dtype):
+    """The ring's pinned slabs and copy stream against a plain ``.to``:
+    the same bits on the card (the cast to bf16 on the host rounds as the
+    plain staging does), tail chunks included, and the copy's event
+    waited on by the compute stream."""
+    from distributed_machine_learning_tpu_torch.data import pipeline
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(0)
+    chunks = [rng.standard_normal((r, 8, 96, 16)).astype(np.float32)
+              for r in (4, 4, 4, 3)]
+    stager = pipeline.PinnedStager(card, slots=3)
+    staged = [stager.stage(((c, dt), (c[..., :1], torch.float32)))
+              for c in chunks]
+    for c, chunk in zip(chunks, staged):
+        assert chunk.event is not None and chunk.nbytes > 0
+        x, y = chunk.take()
+        assert x.device == card and x.dtype == dt
+        want = torch.as_tensor(c).to(device=card, dtype=dt)
+        assert torch.equal(x, want)
+        assert torch.equal(y, torch.as_tensor(c[..., :1]).to(card))
+    stager.close()
+
+
+def test_ring_streams_a_trial_bit_equal_to_resident_on_the_card(card):
+    """A bf16 flash trial streamed through the ring (chunks of 3 batches,
+    a tail, depth 2) ends with the resident trial's parameters and
+    metrics bit for bit, both launching the kernels."""
+    from distributed_machine_learning_tpu_torch import tune
+    from distributed_machine_learning_tpu_torch.data import (
+        dummy_regression_data,
+    )
+
+    config = {"model": "transformer", "d_model": 64, "num_heads": 4,
+              "num_layers": 2, "attention_type": "flash", "dropout": 0.1,
+              "compute_dtype": "bfloat16", "max_seq_length": 128,
+              "learning_rate": 1e-3, "num_epochs": 2, "batch_size": 8}
+    train, val = dummy_regression_data(num_samples=100, seq_len=128,
+                                       num_features=16)
+
+    def run(extra):
+        records, params = [], []
+        before = fa.launches.count
+        with tune.session.standalone(
+                devices=[card],
+                report_fn=lambda m, c: (records.append(m),
+                                        params.append(c["params"]))):
+            tune.train_regressor(dict(config, **extra), train_data=train,
+                                 val_data=val)
+        return records, params[-1], fa.launches.count - before
+
+    res, res_params, res_launches = run({"input_mode": "resident"})
+    st, st_params, st_launches = run({"input_mode": "streaming",
+                                      "streaming_chunk_batches": 3})
+    keys = ("train_loss", "validation_loss", "validation_mape", "lr")
+    assert [[r[k] for k in keys] for r in st] == \
+        [[r[k] for k in keys] for r in res]
+    assert all(torch.equal(st_params[k], v) for k, v in res_params.items())
+    assert st[-1]["input_mode"] == "streaming"
+    assert st_launches == res_launches > 0
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable"])
+def test_population_remat_with_flash_matches_the_plain_step(card, policy):
+    """One f32 population step (K = 3, flash, dropout 0.1) under remat
+    against remat off on the card: losses and gradients bit for bit; the
+    forward kernel launched twice per layer (the rerun), each backward
+    kernel once; and the same step through the plain flash versions
+    within the f32 kernels' 2e-4."""
+    from torch.func import functional_call, grad_and_value, vmap
+
+    from distributed_machine_learning_tpu_torch.models import (
+        build_model,
+        init_parameters,
+    )
+    from distributed_machine_learning_tpu_torch.ops.rng import RowStream
+
+    base = {"model": "transformer", "d_model": 32, "num_heads": 2,
+            "num_layers": 2, "dim_feedforward": 64, "dropout": 0.1,
+            "attention_type": "flash", "max_seq_length": 96}
+    rows = 3
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(rows, 4, 96, 8, generator=gen).to(card)
+    y = torch.randn(rows, 4, 1, generator=gen).to(card)
+    seeds = torch.tensor([3, 5, 7], dtype=torch.int64, device=card)
+
+    def step(config, plain=False):
+        model = build_model(config, 8)
+        init_parameters(model, torch.Generator().manual_seed(1)).to(card)
+        params = {k: torch.stack([p.detach()] * rows)
+                  for k, p in model.named_parameters()}
+        model.train()
+
+        def loss(p, xb, yb, seed):
+            pred = functional_call(model, p, (xb,),
+                                   {"rng": RowStream(seed, 0)})
+            return ((pred - yb) ** 2).mean()
+
+        saved = fa.flash_forward, fa.flash_backward
+        if plain:
+            fa.flash_forward = lambda q, k, v, s=None, c=False, *a, **kw: (
+                fa.flash_attention_reference(q, k, v, s, c)
+                if kw.get("with_lse") else
+                fa.flash_attention_reference(q, k, v, s, c)[0])
+            fa.flash_backward = (
+                lambda q, k, v, o, lse, do, s=None, c=False, *a, **kw:
+                fa.flash_attention_backward_reference(
+                    q, k, v, lse, do, fa.backward_delta(o, do), s, c))
+        counts = [fa.launches.count, fa.dkdv_launches.count,
+                  fa.dq_launches.count]
+        try:
+            grads, value = vmap(grad_and_value(loss), randomness="error")(
+                params, x, y, seeds)
+            torch.cuda.synchronize()
+        finally:
+            fa.flash_forward, fa.flash_backward = saved
+        counts = [c.count - b for c, b in zip(
+            (fa.launches, fa.dkdv_launches, fa.dq_launches), counts)]
+        return grads, value, counts
+
+    off, off_value, off_counts = step(base)
+    on, on_value, on_counts = step(dict(base, remat=True,
+                                        remat_policy=policy))
+    plain, plain_value, _ = step(dict(base, remat=True, remat_policy=policy),
+                                 plain=True)
+    assert off_counts == [2, 2, 2] and on_counts == [4, 2, 2]
+    assert torch.equal(on_value, off_value)
+    assert all(torch.equal(on[k], off[k]) for k in off)
+    assert _rel_err(on_value, plain_value) <= 2e-4
+    for k in off:
+        if not k.endswith("attention.key.bias"):
+            assert _rel_err(on[k], plain[k]) <= 2e-4, k

@@ -400,7 +400,6 @@ def test_run_vectorized_refuses_non_injectable_optimizers(name, tmp_path):
 
 @pytest.mark.parametrize("knob,match", [
     (dict(accumulate_grad_batches=2), "never reads accumulate_grad_batches"),
-    (dict(remat=True), r"remat=True.*ROADMAP.md A1e"),
 ])
 def test_run_vectorized_refuses_accumulation_and_remat_by_name(knob, match,
                                                                tmp_path):

@@ -329,6 +329,7 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.store.core",
     "distributed_machine_learning_tpu_torch.store.metrics",
     "distributed_machine_learning_tpu_torch.liveness",
+    "distributed_machine_learning_tpu_torch.compilecache",
     "distributed_machine_learning_tpu_torch.compilecache.keys",
     "distributed_machine_learning_tpu_torch.models",
     "distributed_machine_learning_tpu_torch.models.convert",
@@ -347,6 +348,7 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.data",
     "distributed_machine_learning_tpu_torch.data.loader",
     "distributed_machine_learning_tpu_torch.data.native",
+    "distributed_machine_learning_tpu_torch.data.pipeline",
     "distributed_machine_learning_tpu_torch.data.synthetic",
     "distributed_machine_learning_tpu_torch.data.features",
     "distributed_machine_learning_tpu_torch.perf.costmodel",
@@ -359,6 +361,9 @@ PORT_MODULES = [
     "distributed_machine_learning_tpu_torch.quant.api",
     "distributed_machine_learning_tpu_torch.tune",
     "distributed_machine_learning_tpu_torch.tune.session",
+    "distributed_machine_learning_tpu_torch.tune._driver",
+    "distributed_machine_learning_tpu_torch.tune.runner",
+    "distributed_machine_learning_tpu_torch.tune.callbacks",
     "distributed_machine_learning_tpu_torch.tune._process_child",
     "distributed_machine_learning_tpu_torch.tune.journal",
     "distributed_machine_learning_tpu_torch.tune.crashsim",

@@ -288,7 +288,7 @@ def test_a_commit_kill_is_not_retried_and_fires_once(fast_retries):
     ("trial_crashes", [("trial_00000", 1)]), ("replica_kills", [(1, 0)]),
     ("hang_dispatch_at", [("trial_00000", 1)]), ("hot_swaps", [3]),
     ("partition_worker", [(1, 0, 1.0)]), ("corrupt_bundle_on_export", 1),
-    ("artifact_fetch_error_rate", 0.5), ("producer_crash_at", 2),
+    ("artifact_fetch_error_rate", 0.5), ("mid_swap_crash", [2]),
 ])
 def test_the_other_faults_stay_refused_by_name(knob, value):
     jax_chaos.FaultPlan(**{knob: value})  # a JAX argument

@@ -166,9 +166,15 @@ def test_counters_come_before_the_end_only_when_a_family_is_active(tmp_path):
     # runner: each trial's final checkpoint is a save.
     (counters, end), = [seen.seen]
     assert end == "end"
+    # The host_input family (data/pipeline.py): the fallback counted, the
+    # streaming counters at 0.
     assert {k: v for k, v in counters.items()
-            if not k.startswith("checkpoint/")} == {
-                "host_input/mode_fallbacks": 1}
+            if not k.startswith(("checkpoint/", "host_input/dataset_cache_"))
+            } == {f"host_input/{k}": int(k == "mode_fallbacks") for k in (
+                "streams_engaged", "mode_fallbacks", "chunks_staged",
+                "bytes_staged", "prefetch_hits", "consumer_waits",
+                "consumer_wait_s", "producer_waits", "producer_wait_s",
+                "consume_s", "producer_stalls", "producer_crashes")}
     assert counters["checkpoint/saves"] == 2
     assert counters["checkpoint/async_saves"] == 0
     quiet = _Counters()

@@ -227,7 +227,7 @@ def test_dropout_in_training_needs_an_explicit_generator():
 
 
 @pytest.mark.parametrize("override,error", [
-    (dict(input_mode="streaming"), NotImplementedError),
+    (dict(seq_axis="sp"), NotImplementedError),
 ])
 def test_unported_features_raise_naming_roadmap(override, error):
     with pytest.raises(error, match="ROADMAP"):

@@ -338,7 +338,7 @@ def test_run_without_a_card_or_devices_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("resume", "auto"), ("mesh_shape", {"dp": 2}), ("input_mode", "resident"),
+    ("resume", "auto"), ("mesh_shape", {"dp": 2}),
     ("trace", True), ("trace_profile_trials", 1),
     ("checkpoint_storage", "gs://bucket/exp"),
 ])

@@ -600,8 +600,18 @@ def test_streaming_falls_back_and_dispatch_size_changes_nothing(tmp_path):
     assert runs["auto"] == runs["one"] == runs["streaming"]
     state = json.loads((tmp_path / "streaming" / "experiment_state.json")
                        .read_text())
-    assert state["host_input"] == {"mode_fallbacks": 1,
-                                   "input_mode_requested": "streaming"}
+    # The JAX runner's block: every host_input counter's delta
+    # (data/pipeline.py) and the mode asked for.
+    block = state["host_input"]
+    assert block["mode_fallbacks"] == 1
+    assert block["input_mode_requested"] == "streaming"
+    assert {k: v for k, v in block.items()
+            if k not in ("mode_fallbacks", "input_mode_requested")
+            and not k.startswith("dataset_cache_")} == dict.fromkeys(
+        ("streams_engaged", "chunks_staged", "bytes_staged",
+         "prefetch_hits", "consumer_waits", "consumer_wait_s",
+         "producer_waits", "producer_wait_s", "consume_s",
+         "producer_stalls", "producer_crashes"), 0)
     assert state["vectorized"] is True and state["compile_time_total_s"] == 0
 
 
